@@ -1,10 +1,8 @@
-"""Micro-benchmarks backing the per-component perf numbers quoted in
-README/COMPONENTS (host-sweep ns/pair, native FASTA GC scanner MB/s,
-native PAF tokenizer lines/s). Writes ``BENCH_MICRO.json``
-(merge-update); tools/render_docs.py renders the doc sentences from
-it so no hand-written digit can drift (VERDICT r4 #2).
+"""Host-side micro-benchmarks of the native components (host-sweep
+ns/pair, native FASTA GC scanner MB/s, native PAF tokenizer lines/s).
+Prints one JSON object; these are host-CPU numbers, never device ones.
 
-Run alone (4 cores; never concurrently with another bench):
+Run alone (never concurrently with another bench):
     python bench_micro.py
 """
 
@@ -17,32 +15,15 @@ import sys
 import tempfile
 import time
 
-from pandepth_tpu import boot  # noqa: F401  (THP off before numpy work)
+from pandepth_jax import boot  # noqa: F401  (THP off before numpy work)
 
 import numpy as np
-
-OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                   "BENCH_MICRO.json")
-
-
-def merge_write(updates: dict) -> None:
-    data = {}
-    try:
-        with open(OUT) as fh:
-            data = json.load(fh)
-    except (OSError, ValueError):
-        pass
-    data.update(updates)
-    with open(OUT, "w") as fh:
-        json.dump(data, fh, indent=1, sort_keys=True)
-        fh.write("\n")
-
 
 def bench_host_sweep(n_pairs: int = 16 << 20) -> dict:
     """ns/pair of the native host finalize (parallel radix sort + one
     sweep + query eval) at 3 Gb coordinate scale — the engine cold
     one-shot runs elect (device/host_engine.py)."""
-    from pandepth_tpu.device import hosteval as he
+    from pandepth_jax.device import hosteval as he
 
     total = 3_000_000_000
     dt = he.pos_dtype_for(total)  # uint32 at 3 Gb
@@ -66,7 +47,7 @@ def bench_host_sweep(n_pairs: int = 16 << 20) -> dict:
 
 def bench_fasta_scan(mb: int = 256) -> dict:
     """MB/s of the native streaming FASTA scanner -> PackedGC."""
-    from pandepth_tpu.io.fasta import iter_fasta_gc
+    from pandepth_jax.io.fasta import iter_fasta_gc
 
     rng = np.random.RandomState(13)
     with tempfile.TemporaryDirectory() as td:
@@ -94,7 +75,7 @@ def bench_fasta_scan(mb: int = 256) -> dict:
 def bench_paf_tokenize(n_lines: int = 2_000_000) -> dict:
     """lines/s of the native PAF tokenizer -> clamped global depth
     intervals (pancov_paf_load)."""
-    from pandepth_tpu.io.native import NativePafLoad
+    from pandepth_jax.io.native import NativePafLoad
 
     rng = np.random.RandomState(17)
     L = 250_000_000
@@ -137,7 +118,6 @@ def main() -> int:
         part = fn()
         sys.stderr.write(f"bench_micro: {part}\n")
         res.update(part)
-    merge_write(res)
     print(json.dumps(res))
     return 0
 

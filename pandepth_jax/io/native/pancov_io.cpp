@@ -1,0 +1,3978 @@
+// libpancov_io: host-side alignment decode for pandepth_jax.
+//
+// Replacement for the role htslib plays in the reference (BGZF block
+// inflate + BAM record decode + decode thread pool, consumed at
+// src/PanDepth.cpp:3482-3507 and the ProDealChrBambai* workers). The
+// device is useless if the host feed starves (SURVEY.md §8 hard part
+// #1), so this library:
+//
+//   * scans BGZF block boundaries via the BSIZE extra field (SAMv1
+//     §4.1) without inflating,
+//   * inflates all blocks in parallel with a std::thread pool (zlib
+//     raw deflate per block; ISIZE trailer gives each block's output
+//     offset up front, so threads write disjoint slices of one
+//     buffer),
+//   * walks BAM records once to index boundaries, then fills
+//     caller-provided columnar arrays (tid/pos/flag/mapq + flattened
+//     CIGAR stream) — exactly the ReadBatch layout the device engine
+//     consumes (pandepth_jax/io/bam.py).
+//
+// Exposed as a plain C ABI for ctypes; no Python headers needed.
+
+#include <sys/mman.h>
+
+#include <algorithm>
+#include <atomic>
+#include <chrono>
+#include <condition_variable>
+#include <deque>
+#include <functional>
+#include <limits>
+#include <mutex>
+#include <cmath>
+#include <cstdint>
+#include <cstdlib>
+#include <memory>
+#include <cstdio>
+#include <cstring>
+#include <string>
+#include <thread>
+#include <unordered_set>
+#include <vector>
+
+#if defined(__AVX2__)
+#include <immintrin.h>
+#endif
+
+#include <zlib.h>
+
+#ifdef USE_LIBDEFLATE
+#include <libdeflate.h>
+#endif
+
+namespace {
+
+struct Block {
+  size_t src_off;    // block start offset in the file (BAI coffset)
+  size_t in_off;     // compressed payload offset
+  size_t in_len;     // compressed payload length
+  size_t out_off;    // offset in decompressed buffer
+  uint32_t out_len;  // ISIZE
+};
+
+// uninitialized byte buffer: std::vector<uint8_t>::resize zero-fills,
+// which costs ~0.5 ms/MB before inflate overwrites every byte anyway.
+// (MADV_HUGEPAGE was tried and reverted: on this VM it triggers
+// synchronous compaction and multiplies kernel time ~5x.)
+struct RawBuf {
+  uint8_t* p = nullptr;
+  size_t n = 0;
+  ~RawBuf() { delete[] p; }
+  void alloc(size_t size) {
+    delete[] p;
+    p = new uint8_t[size];
+    n = size;
+  }
+  uint8_t* data() { return p; }
+  const uint8_t* data() const { return p; }
+  size_t size() const { return n; }
+};
+
+struct BamFile {
+  RawBuf data;  // decompressed stream
+  std::string error;
+  std::string text;                    // SAM header text
+  std::vector<std::string> names;
+  std::vector<int64_t> lengths;
+  std::vector<size_t> rec_off;         // per record: first field offset
+  std::vector<int32_t> rec_ncigar;
+  int64_t total_ops = 0;
+};
+
+bool read_file(const char* path, std::vector<uint8_t>& out) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) return false;
+  long n = -1;
+  if (std::fseek(f, 0, SEEK_END) == 0) {
+    n = std::ftell(f);
+    if (n >= 0 && std::fseek(f, 0, SEEK_SET) != 0) n = -1;
+  }
+  if (n >= 0) {
+    out.resize((size_t)n);
+    size_t got = n ? std::fread(out.data(), 1, (size_t)n, f) : 0;
+    std::fclose(f);
+    return got == (size_t)n;
+  }
+  // unseekable input (FIFO / process substitution): stream in chunks
+  out.clear();
+  size_t w = 0;
+  size_t got;
+  do {
+    out.resize(w + (1 << 20));
+    got = std::fread(out.data() + w, 1, 1 << 20, f);
+    w += got;
+  } while (got == (1 << 20));
+  bool ok = std::ferror(f) == 0;
+  std::fclose(f);
+  out.resize(w);
+  return ok;
+}
+
+uint16_t le16(const uint8_t* p) { return (uint16_t)(p[0] | p[1] << 8); }
+uint32_t le32(const uint8_t* p) {
+  return (uint32_t)p[0] | (uint32_t)p[1] << 8 | (uint32_t)p[2] << 16 |
+         (uint32_t)p[3] << 24;
+}
+
+// Scan BGZF member headers; returns false on malformed framing.
+bool scan_blocks(const std::vector<uint8_t>& raw, std::vector<Block>& blocks,
+                 size_t& total_out) {
+  size_t off = 0, n = raw.size();
+  total_out = 0;
+  while (off + 18 <= n) {
+    const uint8_t* p = raw.data() + off;
+    if (p[0] != 0x1f || p[1] != 0x8b) return false;
+    if (!(p[3] & 4)) return false;  // FEXTRA required for BGZF
+    uint16_t xlen = le16(p + 10);
+    size_t xp = off + 12, xend = xp + xlen;
+    if (xend > n) return false;
+    long bsize = -1;
+    while (xp + 4 <= xend) {
+      uint8_t si1 = raw[xp], si2 = raw[xp + 1];
+      uint16_t slen = le16(raw.data() + xp + 2);
+      if (si1 == 'B' && si2 == 'C' && slen == 2)
+        bsize = (long)le16(raw.data() + xp + 4) + 1;
+      xp += 4 + slen;
+    }
+    // a block must at least hold its own header + CRC32/ISIZE trailer,
+    // or payload_len below underflows size_t
+    if (bsize < 0 || off + (size_t)bsize > n ||
+        (size_t)bsize < (xend - off) + 8)
+      return false;
+    size_t payload = xend;
+    size_t payload_len = off + bsize - 8 - payload;
+    uint32_t isize = le32(raw.data() + off + bsize - 4);
+    blocks.push_back({off, payload, payload_len, total_out, isize});
+    total_out += isize;
+    off += (size_t)bsize;
+  }
+  return off == n;
+}
+
+#ifdef USE_LIBDEFLATE
+// libdeflate decompresses BGZF blocks ~2-3x faster than zlib — the
+// host-side throughput lever called out in SURVEY.md §2.2. One
+// decompressor per thread (they are not thread-safe but are reusable).
+thread_local libdeflate_decompressor* tl_decomp = nullptr;
+
+bool inflate_block(const uint8_t* src, size_t src_len, uint8_t* dst,
+                   uint32_t dst_len) {
+  if (!tl_decomp) tl_decomp = libdeflate_alloc_decompressor();
+  size_t actual = 0;
+  auto rc = libdeflate_deflate_decompress(tl_decomp, src, src_len, dst,
+                                          dst_len, &actual);
+  return rc == LIBDEFLATE_SUCCESS && actual == dst_len;
+}
+#else
+bool inflate_block(const uint8_t* src, size_t src_len, uint8_t* dst,
+                   uint32_t dst_len) {
+  z_stream zs;
+  std::memset(&zs, 0, sizeof(zs));
+  if (inflateInit2(&zs, -15) != Z_OK) return false;
+  zs.next_in = const_cast<uint8_t*>(src);
+  zs.avail_in = (uInt)src_len;
+  zs.next_out = dst;
+  zs.avail_out = dst_len;
+  int rc = inflate(&zs, Z_FINISH);
+  inflateEnd(&zs);
+  return rc == Z_STREAM_END && zs.avail_out == 0;
+}
+#endif
+
+bool inflate_all(const std::vector<uint8_t>& raw, int n_threads,
+                 RawBuf& out) {
+  std::vector<Block> blocks;
+  size_t total = 0;
+  if (!scan_blocks(raw, blocks, total)) return false;
+  out.alloc(total);
+  std::atomic<size_t> next(0);
+  std::atomic<bool> ok(true);
+  if (n_threads < 1) n_threads = 1;
+  auto worker = [&]() {
+    for (;;) {
+      size_t i = next.fetch_add(1);
+      if (i >= blocks.size() || !ok.load()) break;
+      const Block& b = blocks[i];
+      if (b.out_len &&
+          !inflate_block(raw.data() + b.in_off, b.in_len,
+                         out.data() + b.out_off, b.out_len))
+        ok.store(false);
+    }
+  };
+  std::vector<std::thread> ts;
+  for (int t = 1; t < n_threads; t++) ts.emplace_back(worker);
+  worker();
+  for (auto& t : ts) t.join();
+  return ok.load();
+}
+
+bool parse_header(BamFile* bf, size_t& off) {
+  const auto& d = bf->data;
+  if (d.size() < 12 || std::memcmp(d.data(), "BAM\x01", 4) != 0) {
+    bf->error = "not a BAM stream";
+    return false;
+  }
+  uint32_t l_text = le32(d.data() + 4);
+  off = 8;
+  if (off + l_text + 4 > d.size()) return false;
+  const char* tp = (const char*)d.data() + off;
+  bf->text.assign(tp, strnlen(tp, l_text));
+  off += l_text;
+  uint32_t n_ref = le32(d.data() + off);
+  off += 4;
+  bf->names.reserve(n_ref);
+  bf->lengths.reserve(n_ref);
+  for (uint32_t i = 0; i < n_ref; i++) {
+    if (off + 4 > d.size()) return false;
+    uint32_t l_name = le32(d.data() + off);
+    off += 4;
+    // l_name counts the NUL terminator; 0 would wrap l_name - 1
+    if (l_name < 1 || off + l_name + 4 > d.size()) return false;
+    bf->names.emplace_back((const char*)d.data() + off, l_name - 1);
+    off += l_name;
+    bf->lengths.push_back((int32_t)le32(d.data() + off));
+    off += 4;
+  }
+  return true;
+}
+
+// Long-CIGAR records: BAM caps n_cigar at 2^16-1, so writers store a
+// `l_qseq S, ref_span N` placeholder in the CIGAR field and the real
+// ops in a CG:B,I aux tag. htslib 1.11 (the decode layer under the
+// reference's sam_read1, src/PanDepth.cpp:4604) rewrites the record on
+// read (sam.c bam_tag2cigar): first op S of exactly l_qseq + a CG:B,I
+// tag => the tag holds the CIGAR. Mirror that rule; any malformed tag
+// keeps the placeholder, as htslib does.
+bool cg_real_cigar(const uint8_t* p, uint32_t block_size, uint32_t nc,
+                   const uint8_t** cig_out, int64_t* nc_out) {
+  uint32_t lqseq = le32(p + 16);
+  if (nc == 0 || lqseq == 0) return false;
+  const uint8_t* cig = p + 32 + p[8];
+  uint32_t v0 = le32(cig);
+  if ((v0 & 0xF) != 4 /*S*/ || (v0 >> 4) != lqseq) return false;
+  // walk aux tags for CG:B,I
+  size_t off = 32u + p[8] + 4u * nc + (lqseq + 1) / 2 + lqseq;
+  while (off + 3 <= block_size) {
+    uint8_t t1 = p[off], t2 = p[off + 1], type = p[off + 2];
+    off += 3;
+    size_t vlen;
+    switch (type) {
+      case 'A': case 'c': case 'C': vlen = 1; break;
+      case 's': case 'S': vlen = 2; break;
+      case 'i': case 'I': case 'f': vlen = 4; break;
+      case 'Z': case 'H': {
+        size_t z = off;
+        while (z < block_size && p[z]) z++;
+        if (z >= block_size) return false;
+        vlen = z - off + 1;
+        break;
+      }
+      case 'B': {
+        if (off + 5 > block_size) return false;
+        uint8_t sub = p[off];
+        uint32_t cnt = le32(p + off + 1);
+        size_t es;
+        switch (sub) {
+          case 'c': case 'C': es = 1; break;
+          case 's': case 'S': es = 2; break;
+          case 'i': case 'I': case 'f': es = 4; break;
+          default: return false;
+        }
+        if (off + 5 + (size_t)cnt * es > block_size) return false;
+        if (t1 == 'C' && t2 == 'G' && (sub == 'I' || sub == 'i')) {
+          if (cnt < 1 || cnt >= (1u << 29)) return false;
+          *cig_out = p + off + 5;
+          *nc_out = cnt;
+          return true;
+        }
+        vlen = 5 + (size_t)cnt * es;
+        break;
+      }
+      default: return false;
+    }
+    off += vlen;
+  }
+  return false;
+}
+
+// effective (cigar ptr, op count) for the record at p: the in-place
+// CIGAR unless a valid CG:B,I substitution applies
+inline void effective_cigar(const uint8_t* p, uint32_t block_size,
+                            uint32_t nc, const uint8_t** cig,
+                            int64_t* n) {
+  *cig = p + 32 + p[8];
+  *n = nc;
+  if (nc > 0) cg_real_cigar(p, block_size, nc, cig, n);
+}
+
+bool index_records(BamFile* bf, size_t off) {
+  const auto& d = bf->data;
+  size_t n = d.size();
+  size_t guess = (n - off) / 100 + 16;  // typical short-read record
+  bf->rec_off.reserve(guess);
+  bf->rec_ncigar.reserve(guess);
+  while (off + 4 <= n) {
+    uint32_t block_size = le32(d.data() + off);
+    if (off + 4 + block_size > n || block_size < 32) {
+      bf->error = "truncated BAM record";
+      return false;
+    }
+    size_t r = off + 4;
+    uint16_t n_cigar = le16(d.data() + r + 12);
+    // the fixed fields + read name + CIGAR must fit inside the record,
+    // or decode walks out of bounds on a corrupt/hostile file
+    if (32u + d.data()[r + 8] + 4u * n_cigar > block_size) {
+      bf->error = "truncated BAM record";
+      return false;
+    }
+    bf->rec_off.push_back(r);
+    const uint8_t* cg;
+    int64_t nc_eff = n_cigar;
+    if (n_cigar > 0)
+      cg_real_cigar(d.data() + r, block_size, n_cigar, &cg, &nc_eff);
+    bf->rec_ncigar.push_back((int32_t)nc_eff);
+    bf->total_ops += nc_eff;
+    off += 4 + (size_t)block_size;
+  }
+  return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Which inflate library this build linked (reported by chip_smoke.py).
+const char* pancov_inflate_backend() {
+#ifdef USE_LIBDEFLATE
+  return "libdeflate";
+#else
+  return "zlib";
+#endif
+}
+
+void* pancov_bam_open(const char* path, int n_threads, char* err,
+                      int err_len) {
+  auto* bf = new BamFile();
+  std::vector<uint8_t> raw;
+  auto fail = [&](const char* msg) -> void* {
+    if (err && err_len > 0) std::snprintf(err, err_len, "%s", msg);
+    delete bf;
+    return nullptr;
+  };
+  if (!read_file(path, raw)) return fail("cannot read file");
+  if (raw.size() >= 2 && raw[0] == 0x1f && raw[1] == 0x8b) {
+    if (!inflate_all(raw, n_threads, bf->data))
+      return fail("BGZF inflate failed");
+  } else {
+    bf->data.alloc(raw.size());
+    std::memcpy(bf->data.data(), raw.data(), raw.size());
+  }
+  size_t off = 0;
+  if (!parse_header(bf, off))
+    return fail(bf->error.empty() ? "bad BAM header" : bf->error.c_str());
+  if (!index_records(bf, off)) return fail(bf->error.c_str());
+  return bf;
+}
+
+int64_t pancov_bam_n_targets(void* h) {
+  return (int64_t)((BamFile*)h)->names.size();
+}
+
+int64_t pancov_bam_name_len(void* h, int64_t i) {
+  return (int64_t)((BamFile*)h)->names[i].size();
+}
+
+void pancov_bam_name(void* h, int64_t i, char* dst) {
+  const auto& s = ((BamFile*)h)->names[i];
+  std::memcpy(dst, s.data(), s.size());
+}
+
+int64_t pancov_bam_target_len(void* h, int64_t i) {
+  return ((BamFile*)h)->lengths[i];
+}
+
+int64_t pancov_bam_text_len(void* h) {
+  return (int64_t)((BamFile*)h)->text.size();
+}
+
+void pancov_bam_text(void* h, char* dst) {
+  const auto& s = ((BamFile*)h)->text;
+  std::memcpy(dst, s.data(), s.size());
+}
+
+int64_t pancov_bam_n_records(void* h) {
+  return (int64_t)((BamFile*)h)->rec_off.size();
+}
+
+int64_t pancov_bam_total_ops(void* h) { return ((BamFile*)h)->total_ops; }
+
+// Count CIGAR ops in records [r0, r1) so callers can size buffers.
+int64_t pancov_bam_count_ops(void* h, int64_t r0, int64_t r1) {
+  auto* bf = (BamFile*)h;
+  int64_t m = 0;
+  for (int64_t r = r0; r < r1; r++) m += bf->rec_ncigar[r];
+  return m;
+}
+
+// Fill columnar arrays for records [r0, r1). Buffers must hold
+// (r1-r0) reads and pancov_bam_count_ops(r0, r1) ops. Returns ops
+// written.
+int64_t pancov_bam_decode(void* h, int64_t r0, int64_t r1, int32_t* tid,
+                          int32_t* pos, int32_t* flag, int32_t* mapq,
+                          int32_t* n_ops, int32_t* op_code,
+                          int32_t* op_len, int32_t* op_read) {
+  auto* bf = (BamFile*)h;
+  const uint8_t* d = bf->data.data();
+  int64_t m = 0;
+  for (int64_t r = r0; r < r1; r++) {
+    const uint8_t* p = d + bf->rec_off[r];
+    int64_t i = r - r0;
+    tid[i] = (int32_t)le32(p);
+    pos[i] = (int32_t)le32(p + 4);
+    mapq[i] = p[9];
+    flag[i] = le16(p + 14);
+    const uint8_t* cig;
+    int64_t nc;
+    effective_cigar(p, le32(p - 4), le16(p + 12), &cig, &nc);
+    n_ops[i] = (int32_t)nc;
+    for (int64_t k = 0; k < nc; k++) {
+      uint32_t v = le32(cig + 4 * k);
+      op_code[m] = (int32_t)(v & 0xF);
+      op_len[m] = (int32_t)(v >> 4);
+      op_read[m] = (int32_t)i;
+      m++;
+    }
+  }
+  return m;
+}
+
+void pancov_bam_close(void* h) { delete (BamFile*)h; }
+
+namespace {
+
+// CIGAR op class masks (SAMv1 §4.2; same semantics as the reference
+// hot loop at src/PanDepth.cpp:440-459)
+constexpr uint32_t kRefConsume = 0b110001101;  // M D N = X
+constexpr uint32_t kAddsDepth = 0b110000001;   // M = X
+
+struct EvChunk {
+  std::vector<int64_t> starts, ends;
+};
+
+void extract_chunk(const BamFile* bf, int64_t r0, int64_t r1,
+                   uint32_t flags_mask, int32_t min_mapq,
+                   const int64_t* offsets, const int64_t* limits,
+                   int64_t n_targets, EvChunk* out) {
+  const uint8_t* d = bf->data.data();
+  for (int64_t r = r0; r < r1; r++) {
+    const uint8_t* p = d + bf->rec_off[r];
+    int32_t tid = (int32_t)le32(p);
+    if (tid < 0 || tid >= n_targets) continue;
+    uint16_t flag = le16(p + 14);
+    if (flag & flags_mask) continue;
+    if (min_mapq >= 1 && p[9] < min_mapq) continue;
+    if (!bf->rec_ncigar[r]) continue;
+    int64_t cur = offsets[tid] + (int32_t)le32(p + 4);
+    int64_t floor = offsets[tid], limit = limits[tid];
+    const uint8_t* cig;
+    int64_t nc;
+    effective_cigar(p, le32(p - 4), le16(p + 12), &cig, &nc);
+    for (int64_t k = 0; k < nc; k++) {
+      uint32_t v = le32(cig + 4 * k);
+      uint32_t op = v & 0xF;
+      int64_t len = v >> 4;
+      if ((kAddsDepth >> op) & 1) {
+        int64_t s = cur < floor ? floor : (cur > limit ? limit : cur);
+        int64_t e = cur + len;
+        e = e < floor ? floor : (e > limit ? limit : e);
+        if (e > s) {
+          out->starts.push_back(s);
+          out->ends.push_back(e);
+        }
+      }
+      if ((kRefConsume >> op) & 1) cur += len;
+    }
+  }
+}
+
+}  // namespace
+
+// Extract coverage events for records [r0, r1): every kept M/=/X
+// segment emits its clamped global [start, end). Threaded over record
+// ranges (event order is irrelevant — the device sorts). Buffers must
+// hold pancov_bam_count_ops(r0, r1) entries; returns events written.
+int64_t pancov_bam_events(void* h, int64_t r0, int64_t r1,
+                          uint32_t flags_mask, int32_t min_mapq,
+                          const int64_t* offsets, const int64_t* limits,
+                          int64_t n_targets, int n_threads,
+                          int64_t* starts, int64_t* ends) {
+  auto* bf = (BamFile*)h;
+  if (n_threads < 1) n_threads = 1;
+  int64_t span = r1 - r0;
+  if (span <= 0) return 0;
+  int t = (int)std::min<int64_t>(n_threads, (span + 4095) / 4096);
+  std::vector<EvChunk> chunks(t);
+  std::vector<std::thread> ts;
+  int64_t per = (span + t - 1) / t;
+  for (int i = 0; i < t; i++) {
+    int64_t a = r0 + i * per;
+    int64_t b = std::min(r1, a + per);
+    if (a >= b) continue;
+    ts.emplace_back(extract_chunk, bf, a, b, flags_mask, min_mapq,
+                    offsets, limits, n_targets, &chunks[i]);
+  }
+  for (auto& th : ts) th.join();
+  int64_t m = 0;
+  for (auto& c : chunks) {
+    std::memcpy(starts + m, c.starts.data(),
+                c.starts.size() * sizeof(int64_t));
+    std::memcpy(ends + m, c.ends.data(),
+                c.ends.size() * sizeof(int64_t));
+    m += (int64_t)c.starts.size();
+  }
+  return m;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// Fully pipelined load: parallel BGZF inflate with an index+extract
+// walker chasing the inflated frontier — one pass over the record
+// bytes produces both the record index and the coverage events, so the
+// whole host side runs at inflate speed.
+
+namespace {
+
+struct LoadedBam {
+  BamFile bam;
+  std::vector<int64_t> ev_starts, ev_ends;
+  std::vector<int64_t> offsets, limits;
+};
+
+// per-walker output buffers (ranged mode walks in parallel)
+struct EvSink {
+  std::vector<size_t> rec_off;
+  std::vector<int32_t> rec_nc;
+  int64_t ops = 0;
+  int64_t n_rec = 0;
+  bool track_records = true;  // streaming sinks only count
+  std::vector<int64_t> es, ee;
+};
+
+// Record filtering + event extraction shared by the one-shot loader
+// and the streaming loader. Replicates which reads the reference
+// actually counts (see pancov_bam_load's header comment for the
+// region_mode semantics).
+struct WalkCtx {
+  uint32_t flags_mask = 0;
+  int32_t min_mapq = -1;
+  const int64_t* offsets = nullptr;
+  const int64_t* limits = nullptr;
+  int64_t n_targets = 0;
+  const int64_t* reg_off = nullptr;
+  const int64_t* reg_start = nullptr;
+  const int64_t* reg_end = nullptr;
+  int64_t n_regions = 0;
+  int region_mode = 0;
+  // region-cursor state (region_mode 2; persists across windows)
+  std::vector<int64_t> cursor;
+  std::vector<uint8_t> chr_done;
+  int64_t chrs_left = 0;
+  bool stream_done = false;  // the reference `break`s out of the loop
+  // mode-1 monotone window cursor (serial chaser only): fetch
+  // windows are merged, non-overlapping and sorted, and a
+  // coordinate-sorted stream's positions are nondecreasing per tid,
+  // so the overlap test advances a per-tid hint amortized O(1)
+  // instead of a log2(windows) binary search PER RECORD — at 30x
+  // deep gene mode (33k windows/contig, 240M records) the searches
+  // WERE the walk. Non-monotone records (unsorted input) fall back
+  // to the binary search, so semantics never change. MUST stay off
+  // when multiple threads share one ctx (par_walk, the one-shot
+  // parallel ranged walkers): the hints are stateful.
+  bool mono_hint = false;
+  std::vector<int64_t> m1_hint;
+  std::vector<int64_t> m1_last;
+
+  void init_cursor() {
+    if (n_regions > 0 && region_mode == 2) {
+      cursor.resize(n_targets);
+      chr_done.resize(n_targets);
+      for (int64_t t = 0; t < n_targets; t++) {
+        cursor[t] = reg_off[t];
+        chr_done[t] = reg_off[t] == reg_off[t + 1];
+        if (!chr_done[t]) chrs_left++;
+      }
+    }
+    if (n_regions > 0 && region_mode == 1) {
+      m1_hint.resize(n_targets);
+      m1_last.assign(n_targets, INT64_MIN);
+      for (int64_t t = 0; t < n_targets; t++)
+        m1_hint[t] = reg_off[t];
+    }
+  }
+
+  // one record at `off2` in stream bytes d[0, total): index + filter +
+  // extract into `sk`; returns next offset, or 0 on malformed framing
+  size_t process_record(const uint8_t* d, size_t total, size_t off2,
+                        EvSink& sk) {
+    uint32_t block_size = le32(d + off2);
+    if (off2 + 4 + block_size > total || block_size < 32) return 0;
+    const uint8_t* p = d + off2 + 4;
+    uint16_t nc_raw = le16(p + 12);
+    // fixed fields + read name + CIGAR must fit inside the record
+    if (32u + p[8] + 4u * nc_raw > block_size) return 0;
+    const uint8_t* cig;
+    int64_t nc;
+    effective_cigar(p, block_size, nc_raw, &cig, &nc);
+    if (sk.track_records) {
+      sk.rec_off.push_back(off2 + 4);
+      sk.rec_nc.push_back((int32_t)nc);
+      sk.ops += nc;
+    }
+    sk.n_rec++;
+
+    // NB: no-CIGAR records (unmapped `*`) are NOT pre-filtered here —
+    // when the flag mask admits them (-x without 0x4) the reference
+    // still walks them through its region cursor (bam_endpos = pos+1,
+    // src/PanDepth.cpp:4616-4645), so they can advance mode-2 state;
+    // they emit no events either way.
+    int32_t tid = (int32_t)le32(p);
+    bool keep = tid >= 0 && tid < n_targets;
+    if (keep) {
+      uint16_t flag = le16(p + 14);
+      if (flag & flags_mask) keep = false;
+      if (keep && min_mapq >= 1 && p[9] < min_mapq) keep = false;
+    }
+    if (keep && n_regions > 0) {
+      int64_t pos0 = (int32_t)le32(p + 4);
+      int64_t span = 0;
+      for (int64_t k = 0; k < nc; k++) {
+        uint32_t v = le32(cig + 4 * k);
+        if ((kRefConsume >> (v & 0xF)) & 1) span += v >> 4;
+      }
+      int64_t end0 = span > 0 ? pos0 + span : pos0 + 1;
+      if (region_mode == 1) {
+        // does the read overlap any fetch window of its contig?
+        int64_t a = reg_off[tid], b2 = reg_off[tid + 1];
+        if (mono_hint && pos0 >= m1_last[tid]) {
+          int64_t h = m1_hint[tid];
+          while (h < b2 && reg_end[h] <= pos0) h++;
+          m1_hint[tid] = h;
+          m1_last[tid] = pos0;
+          keep = h < b2 && reg_start[h] < end0;
+        } else {
+          const int64_t* first = reg_start + a;
+          const int64_t* last = reg_start + b2;
+          const int64_t* it = std::upper_bound(first, last, end0 - 1);
+          keep = (it != first) &&
+                 reg_end[a + (it - first) - 1] > pos0;
+        }
+      } else if (region_mode == 2) {
+        // stateful sorted-stream cursor
+        if (stream_done || chr_done[tid]) {
+          keep = false;
+        } else if (end0 < reg_start[cursor[tid]]) {
+          keep = false;  // note: raw 0-based end vs 1-based start
+        } else if (pos0 > reg_end[cursor[tid]]) {
+          int64_t c = cursor[tid] + 1;
+          int64_t b2 = reg_off[tid + 1];
+          while (c < b2 && pos0 > reg_end[c]) c++;
+          if (c >= b2) {
+            chr_done[tid] = 1;
+            chrs_left--;
+            if (chrs_left == 0) {
+              // the reference breaks the read loop HERE, so the
+              // finishing read is only counted when other
+              // chromosomes were still pending
+              stream_done = true;
+              keep = false;
+            }
+          }
+          cursor[tid] = c < b2 ? c : b2 - 1;
+        }
+      }
+    }
+    if (keep) {
+      int64_t cur = offsets[tid] + (int32_t)le32(p + 4);
+      int64_t floor = offsets[tid], limit = limits[tid];
+      for (int64_t k = 0; k < nc; k++) {
+        uint32_t v = le32(cig + 4 * k);
+        uint32_t op = v & 0xF;
+        int64_t len = v >> 4;
+        if ((kAddsDepth >> op) & 1) {
+          int64_t s = cur < floor ? floor : (cur > limit ? limit : cur);
+          int64_t e = cur + len;
+          e = e < floor ? floor : (e > limit ? limit : e);
+          if (e > s) {
+            sk.es.push_back(s);
+            sk.ee.push_back(e);
+          }
+        }
+        if ((kRefConsume >> op) & 1) cur += len;
+      }
+    }
+    return off2 + 4 + (size_t)block_size;
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// ext_offsets/ext_limits (may be null with n_ext=0): externally imposed
+// genome layout (multi-sample mode uses the FIRST file's contig space,
+// reference quirk Q5, src/PanDepth.cpp:2041-2061). Otherwise the layout
+// is derived from this file's header with `pad` slack cells per contig.
+//
+// reg_* (may be null with n_regions=0): restrict event extraction to
+// target regions, replicating which reads the reference actually
+// counts. region_mode selects the semantics:
+//   1 = indexed fetch: keep reads overlapping one of the disjoint,
+//       per-tid-sorted 0-based half-open [reg_start, reg_end) windows
+//       (htslib region strings padded +-1, src/PanDepth.cpp:700-703);
+//   2 = no-index sorted-stream cursor (src/PanDepth.cpp:4604-4671):
+//       regions are the UNPADDED 1-based closed merged spans; a
+//       per-tid cursor advances with the (coordinate-sorted) stream,
+//       dropping reads that end before the current region start,
+//       counting the read that advances past the last region, and
+//       skipping the chromosome afterwards.
+// reg_off has n_targets+1 entries indexing the flat start/end arrays.
+void* pancov_bam_load(const char* path, int n_threads,
+                      uint32_t flags_mask, int32_t min_mapq, int64_t pad,
+                      const int64_t* ext_offsets,
+                      const int64_t* ext_limits, int64_t n_ext,
+                      const int64_t* reg_off, const int64_t* reg_start,
+                      const int64_t* reg_end, int64_t n_regions,
+                      int region_mode, const int64_t* vr_start,
+                      const int64_t* vr_end, int64_t n_vr, char* err,
+                      int err_len) {
+  auto* lb = new LoadedBam();
+  BamFile* bf = &lb->bam;
+  auto fail = [&](const char* msg) -> void* {
+    if (err && err_len > 0) std::snprintf(err, err_len, "%s", msg);
+    delete lb;
+    return nullptr;
+  };
+  std::vector<uint8_t> raw;
+  if (!read_file(path, raw)) return fail("cannot read file");
+
+  bool bgzf = raw.size() >= 2 && raw[0] == 0x1f && raw[1] == 0x8b;
+  std::vector<Block> blocks;
+  size_t total = 0;
+  std::unique_ptr<std::atomic<uint32_t>[]> done;
+  std::unique_ptr<std::atomic<uint32_t>[]> claim;
+  std::vector<std::thread> workers;
+  std::atomic<size_t> next(0);
+  std::atomic<bool> ok(true);
+
+  auto try_inflate = [&](size_t k) -> bool {
+    uint32_t expect = 0;
+    if (!claim[k].compare_exchange_strong(expect, 1)) return false;
+    const Block& b = blocks[k];
+    if (b.out_len &&
+        !inflate_block(raw.data() + b.in_off, b.in_len,
+                       bf->data.data() + b.out_off, b.out_len))
+      ok.store(false);
+    done[k].store(1, std::memory_order_release);
+    return true;
+  };
+
+  if (bgzf) {
+    if (!scan_blocks(raw, blocks, total)) return fail("bad BGZF framing");
+    bf->data.alloc(total);
+    done.reset(new std::atomic<uint32_t>[blocks.size() + 1]);
+    claim.reset(new std::atomic<uint32_t>[blocks.size() + 1]);
+    for (size_t i = 0; i <= blocks.size(); i++) {
+      done[i].store(0);
+      claim[i].store(0);
+    }
+    int t = n_threads > 1 ? n_threads - 1 : 1;
+    if (n_vr == 0)
+      for (int i = 0; i < t; i++)
+        workers.emplace_back([&]() {
+          for (;;) {
+            size_t k = next.fetch_add(1);
+            if (k >= blocks.size() || !ok.load()) break;
+            try_inflate(k);
+          }
+        });
+  } else {
+    bf->data.alloc(raw.size());
+    std::memcpy(bf->data.data(), raw.data(), raw.size());
+    total = raw.size();
+  }
+
+  // frontier: how many contiguous bytes from the start are ready; the
+  // chaser work-steals the frontier block instead of idling on it
+  size_t frontier_block = 0;
+  size_t ready = bgzf ? 0 : total;
+  auto wait_ready = [&](size_t need) -> bool {
+    while (ready < need) {
+      if (!ok.load()) return false;
+      if (frontier_block < blocks.size() &&
+          done[frontier_block].load(std::memory_order_acquire)) {
+        ready += blocks[frontier_block].out_len;
+        frontier_block++;
+      } else if (frontier_block >= blocks.size() ||
+                 !try_inflate(frontier_block)) {
+        // another thread owns the frontier block; a tight sched_yield
+        // loop here burns kernel time, so nap instead
+        std::this_thread::sleep_for(std::chrono::microseconds(50));
+      }
+    }
+    return true;
+  };
+
+  auto finish = [&]() {
+    ok.store(false);
+    next.store(blocks.size() + 1);
+    for (auto& w : workers) w.join();
+  };
+
+  // header: parse incrementally, never reading past the inflated
+  // frontier (bytes beyond it are uninitialized)
+  size_t off = 0;
+  {
+    if (total < 12 || !wait_ready(12)) {
+      finish();
+      return fail("not a BAM stream");
+    }
+    if (std::memcmp(bf->data.data(), "BAM\x01", 4) != 0) {
+      finish();
+      return fail("not a BAM stream");
+    }
+    uint32_t l_text = le32(bf->data.data() + 4);
+    if (8 + (size_t)l_text + 4 > total ||
+        !wait_ready(8 + (size_t)l_text + 4)) {
+      finish();
+      return fail("truncated BAM header");
+    }
+    const char* tp = (const char*)bf->data.data() + 8;
+    bf->text.assign(tp, strnlen(tp, l_text));
+    off = 8 + l_text;
+    uint32_t n_ref = le32(bf->data.data() + off);
+    off += 4;
+    for (uint32_t i = 0; i < n_ref; i++) {
+      if (off + 4 > total || !wait_ready(off + 4)) {
+        finish();
+        return fail("truncated BAM header");
+      }
+      uint32_t l_name = le32(bf->data.data() + off);
+      off += 4;
+      // l_name counts the NUL terminator; 0 is malformed
+      if (l_name < 1 || off + l_name + 4 > total ||
+          !wait_ready(off + l_name + 4)) {
+        finish();
+        return fail("truncated BAM header");
+      }
+      bf->names.emplace_back((const char*)bf->data.data() + off,
+                             l_name - 1);
+      off += l_name;
+      bf->lengths.push_back((int32_t)le32(bf->data.data() + off));
+      off += 4;
+    }
+  }
+
+  // genome layout
+  int64_t n_targets;
+  if (n_ext > 0) {
+    lb->offsets.assign(ext_offsets, ext_offsets + n_ext);
+    lb->limits.assign(ext_limits, ext_limits + n_ext);
+    n_targets = n_ext;
+  } else {
+    int64_t acc = 0;
+    for (size_t i = 0; i < bf->lengths.size(); i++) {
+      lb->offsets.push_back(acc);
+      acc += bf->lengths[i] + pad;
+      lb->limits.push_back(acc);
+    }
+    n_targets = (int64_t)bf->lengths.size();
+  }
+
+  // chase: index + extract in one walk
+  size_t guess = (total - off) / 100 + 16;
+  bf->rec_off.reserve(guess);
+  bf->rec_ncigar.reserve(guess);
+  lb->ev_starts.reserve(guess);
+  lb->ev_ends.reserve(guess);
+  WalkCtx ctx;
+  ctx.flags_mask = flags_mask;
+  ctx.min_mapq = min_mapq;
+  ctx.offsets = lb->offsets.data();
+  ctx.limits = lb->limits.data();
+  ctx.n_targets = n_targets;
+  ctx.reg_off = reg_off;
+  ctx.reg_start = reg_start;
+  ctx.reg_end = reg_end;
+  ctx.n_regions = n_regions;
+  ctx.region_mode = region_mode;
+  ctx.init_cursor();
+  const uint8_t* d = bf->data.data();
+  using Sink = EvSink;
+  auto process_record = [&](size_t off2, Sink& sk) -> size_t {
+    return ctx.process_record(d, total, off2, sk);
+  };
+
+  auto merge_sinks = [&](std::vector<Sink>& sinks) {
+    size_t nr = 0, nev = 0;
+    for (auto& s : sinks) {
+      nr += s.rec_off.size();
+      nev += s.es.size();
+    }
+    bf->rec_off.reserve(nr);
+    bf->rec_ncigar.reserve(nr);
+    lb->ev_starts.reserve(nev);
+    lb->ev_ends.reserve(nev);
+    for (auto& s : sinks) {
+      bf->rec_off.insert(bf->rec_off.end(), s.rec_off.begin(),
+                         s.rec_off.end());
+      bf->rec_ncigar.insert(bf->rec_ncigar.end(), s.rec_nc.begin(),
+                            s.rec_nc.end());
+      bf->total_ops += s.ops;
+      lb->ev_starts.insert(lb->ev_starts.end(), s.es.begin(),
+                           s.es.end());
+      lb->ev_ends.insert(lb->ev_ends.end(), s.ee.begin(), s.ee.end());
+    }
+  };
+
+  if (n_vr > 0 && bgzf && region_mode != 2) {
+    // index-driven load: inflate and walk only the blocks covered by
+    // the merged virtual-offset ranges (plus the header blocks already
+    // inflated above by wait_ready)
+    size_t nb = blocks.size();
+    std::vector<size_t> src_offs(nb);
+    for (size_t i = 0; i < nb; i++) src_offs[i] = blocks[i].src_off;
+    auto floor_block = [&](int64_t coff) -> size_t {
+      auto it = std::upper_bound(src_offs.begin(), src_offs.end(),
+                                 (size_t)coff);
+      return it == src_offs.begin() ? 0 : (it - src_offs.begin() - 1);
+    };
+    std::vector<size_t> needed;
+    for (int64_t r = 0; r < n_vr; r++) {
+      size_t b0 = floor_block(vr_start[r] >> 16);
+      size_t b1 = floor_block(vr_end[r] >> 16);
+      for (size_t b = b0; b <= b1 && b < nb; b++) needed.push_back(b);
+    }
+    std::atomic<size_t> ni(0);
+    auto rworker = [&]() {
+      for (;;) {
+        size_t k = ni.fetch_add(1);
+        if (k >= needed.size() || !ok.load()) break;
+        try_inflate(needed[k]);
+      }
+    };
+    std::vector<std::thread> rts;
+    for (int i = 1; i < n_threads; i++) rts.emplace_back(rworker);
+    rworker();
+    for (auto& t2 : rts) t2.join();
+    if (!ok.load()) return fail("BGZF inflate failed");
+
+    // walk the ranges in parallel (stateless mode-1 filtering only;
+    // per-range sinks merge back in file order)
+    std::vector<Sink> sinks(n_vr);
+    std::atomic<int64_t> nrange(0);
+    std::atomic<bool> walk_ok(true);
+    auto walker = [&]() {
+      for (;;) {
+        int64_t r = nrange.fetch_add(1);
+        if (r >= n_vr || !walk_ok.load()) break;
+        size_t cb = floor_block(vr_start[r] >> 16);
+        size_t off2 = blocks[cb].out_off + (vr_start[r] & 0xFFFF);
+        for (;;) {
+          while (cb + 1 < nb && blocks[cb + 1].out_off <= off2) cb++;
+          int64_t virt = ((int64_t)blocks[cb].src_off << 16) |
+                         (int64_t)(off2 - blocks[cb].out_off);
+          if (virt >= vr_end[r] || off2 + 4 > total) break;
+          size_t nxt = process_record(off2, sinks[r]);
+          if (nxt == 0) {
+            walk_ok.store(false);
+            break;
+          }
+          off2 = nxt;
+        }
+      }
+    };
+    std::vector<std::thread> wts;
+    for (int i = 1; i < n_threads && i < n_vr; i++)
+      wts.emplace_back(walker);
+    walker();
+    for (auto& t2 : wts) t2.join();
+    if (!walk_ok.load()) {
+      finish();
+      return fail("truncated BAM record");
+    }
+    merge_sinks(sinks);
+    return lb;
+  }
+
+  std::vector<Sink> one(1);
+  while (off + 4 <= total) {
+    if (!wait_ready(std::min(total, off + 4))) break;
+    uint32_t bsz = le32(d + off);
+    if (off + 4 + bsz > total || bsz < 32) {
+      finish();
+      return fail("truncated BAM record");
+    }
+    if (!wait_ready(off + 4 + bsz)) break;
+    size_t nxt = process_record(off, one[0]);
+    if (nxt == 0) {
+      finish();
+      return fail("truncated BAM record");
+    }
+    off = nxt;
+  }
+  bool good = ok.load();
+  for (auto& w : workers) w.join();
+  if (!good) return fail("BGZF inflate failed");
+  merge_sinks(one);
+  return lb;
+}
+
+int64_t pancov_load_n_events(void* h) {
+  return (int64_t)((LoadedBam*)h)->ev_starts.size();
+}
+
+void pancov_load_events(void* h, int64_t* starts, int64_t* ends) {
+  auto* lb = (LoadedBam*)h;
+  std::memcpy(starts, lb->ev_starts.data(),
+              lb->ev_starts.size() * sizeof(int64_t));
+  std::memcpy(ends, lb->ev_ends.data(),
+              lb->ev_ends.size() * sizeof(int64_t));
+}
+
+// int32 variant: fills caller buffers of `cap` elements, padding the
+// tail with `sentinel` — the exact layout CoverageEngine transfers, so
+// Python never touches the event data.
+void pancov_load_events32(void* h, int32_t* starts, int32_t* ends,
+                          int64_t cap, int32_t sentinel) {
+  auto* lb = (LoadedBam*)h;
+  int64_t m = (int64_t)lb->ev_starts.size();
+  for (int64_t i = 0; i < m; i++) {
+    starts[i] = (int32_t)lb->ev_starts[i];
+    ends[i] = (int32_t)lb->ev_ends[i];
+  }
+  for (int64_t i = m; i < cap; i++) {
+    starts[i] = sentinel;
+    ends[i] = sentinel;
+  }
+}
+
+// the embedded BamFile supports all pancov_bam_* accessors
+void* pancov_load_bam(void* h) { return &((LoadedBam*)h)->bam; }
+
+void pancov_load_close(void* h) { delete (LoadedBam*)h; }
+
+// ---------------------------------------------------------------------
+// Streaming bounded-memory load: the file is processed in fixed-size
+// compressed windows (read -> parallel inflate -> record walk ->
+// events), double-buffered behind a producer thread so the consumer's
+// device uploads overlap the next window's inflate. Peak RSS is
+// O(window + events-in-flight) regardless of file size — the
+// equivalent of the reference's bounded 10 Mb sliding-window memory
+// model (src/PanDepth.cpp:676-723), where htslib streams records and
+// never holds the file.
+
+namespace {
+
+// like scan_blocks but tolerates a trailing partial block, reporting
+// how many bytes were consumed; malformed framing still returns false
+bool scan_blocks_partial(const uint8_t* raw, size_t n,
+                         std::vector<Block>& blocks, size_t& total_out,
+                         size_t& consumed) {
+  size_t off = 0;
+  total_out = 0;
+  while (off + 18 <= n) {
+    const uint8_t* p = raw + off;
+    if (p[0] != 0x1f || p[1] != 0x8b) return false;
+    if (!(p[3] & 4)) return false;  // FEXTRA required for BGZF
+    uint16_t xlen = le16(p + 10);
+    size_t xp = off + 12, xend = xp + xlen;
+    if (xend + 8 > n) break;  // partial header
+    long bsize = -1;
+    while (xp + 4 <= xend) {
+      uint8_t si1 = raw[xp], si2 = raw[xp + 1];
+      uint16_t slen = le16(raw + xp + 2);
+      if (si1 == 'B' && si2 == 'C' && slen == 2)
+        bsize = (long)le16(raw + xp + 4) + 1;
+      xp += 4 + slen;
+    }
+    if (bsize < 0 || (size_t)bsize < (xend - off) + 8) return false;
+    if (off + (size_t)bsize > n) break;  // partial payload
+    size_t payload = xend;
+    size_t payload_len = off + bsize - 8 - payload;
+    uint32_t isize = le32(raw + off + bsize - 4);
+    blocks.push_back({off, payload, payload_len, total_out, isize});
+    total_out += isize;
+    off += (size_t)bsize;
+  }
+  consumed = off;
+  return true;
+}
+
+bool inflate_window(const uint8_t* raw, const std::vector<Block>& blocks,
+                    uint8_t* out_base, int n_threads) {
+  std::atomic<size_t> next(0);
+  std::atomic<bool> ok(true);
+  auto worker = [&]() {
+    for (;;) {
+      size_t i = next.fetch_add(1);
+      if (i >= blocks.size() || !ok.load()) break;
+      const Block& b = blocks[i];
+      if (b.out_len &&
+          !inflate_block(raw + b.in_off, b.in_len, out_base + b.out_off,
+                         b.out_len))
+        ok.store(false);
+    }
+  };
+  if (n_threads < 1) n_threads = 1;
+  std::vector<std::thread> ts;
+  for (int t = 1; t < n_threads; t++) ts.emplace_back(worker);
+  worker();
+  for (auto& t : ts) t.join();
+  return ok.load();
+}
+
+// 1 = parsed (hdr_end set), 0 = need more bytes, -1 = malformed
+int try_parse_header(const std::vector<uint8_t>& d,
+                     std::vector<std::string>& names,
+                     std::vector<int64_t>& lengths, std::string& text,
+                     size_t& hdr_end) {
+  names.clear();
+  lengths.clear();
+  if (d.size() < 4) return 0;
+  if (std::memcmp(d.data(), "BAM\x01", 4) != 0) return -1;
+  if (d.size() < 8) return 0;
+  uint32_t l_text = le32(d.data() + 4);
+  size_t off = 8;
+  if (off + (size_t)l_text + 4 > d.size()) return 0;
+  const char* tp = (const char*)d.data() + off;
+  text.assign(tp, strnlen(tp, l_text));
+  off += l_text;
+  uint32_t n_ref = le32(d.data() + off);
+  off += 4;
+  for (uint32_t i = 0; i < n_ref; i++) {
+    if (off + 4 > d.size()) return 0;
+    uint32_t l_name = le32(d.data() + off);
+    off += 4;
+    if (l_name < 1) return -1;
+    if (off + l_name + 4 > d.size()) return 0;
+    names.emplace_back((const char*)d.data() + off, l_name - 1);
+    off += l_name;
+    lengths.push_back((int32_t)le32(d.data() + off));
+    off += 4;
+  }
+  hdr_end = off;
+  return 1;
+}
+
+struct StreamWin {
+  std::vector<int64_t> es, ee;
+  int64_t n_rec = 0;
+};
+
+// Persistent worker team for the streaming producer: spawned once per
+// produce(), handed one job per window. Spawning + joining threads
+// per 32 MB window costs milliseconds of scheduling tails at 650+
+// windows per genome-scale file.
+struct WalkTeam {
+  std::vector<std::thread> ts;
+  std::mutex m;
+  std::condition_variable cv_job, cv_done;
+  std::function<void()> job;
+  uint64_t gen = 0;
+  int started = 0, running = 0;
+  bool quit = false;
+
+  void start(int n) {
+    for (int t = 0; t < n; t++)
+      ts.emplace_back([this]() {
+        uint64_t seen = 0;
+        for (;;) {
+          std::function<void()> j;
+          {
+            std::unique_lock<std::mutex> lk(m);
+            cv_job.wait(lk, [&] { return quit || gen != seen; });
+            if (quit) return;
+            seen = gen;
+            started++;
+            running++;
+            j = job;
+          }
+          j();
+          {
+            std::lock_guard<std::mutex> lk(m);
+            running--;
+            if (running == 0 && started == (int)ts.size())
+              cv_done.notify_all();
+          }
+        }
+      });
+  }
+  // dispatch a job to every worker (non-blocking)
+  void run(std::function<void()> j) {
+    std::lock_guard<std::mutex> lk(m);
+    job = std::move(j);
+    started = 0;
+    gen++;
+    cv_job.notify_all();
+  }
+  // wait until every worker picked up AND finished the current job;
+  // MUST be called before any window-local state the job references
+  // goes out of scope
+  void wait() {
+    std::unique_lock<std::mutex> lk(m);
+    cv_done.wait(lk, [&] {
+      return started == (int)ts.size() && running == 0;
+    });
+  }
+  ~WalkTeam() {
+    {
+      std::lock_guard<std::mutex> lk(m);
+      quit = true;
+    }
+    cv_job.notify_all();
+    for (auto& t : ts) t.join();
+  }
+};
+
+struct StreamBam {
+  FILE* f = nullptr;
+  bool bgzf = true;
+  size_t window_bytes = 32u << 20;
+  int n_threads = 1;
+  std::vector<int64_t> offsets, limits;
+  std::vector<int64_t> regs_off, regs_start, regs_end;  // owned copies
+  // index-selected virtual-offset ranges (sorted, block-coalesced in
+  // open): when non-empty the producer fseeks between them, streaming
+  // only target-overlapping compressed spans — block skipping with the
+  // same bounded memory as the sequential walk. Stateless region
+  // filtering only (region_mode 1), mirroring the reference's indexed
+  // fetch path (src/PanDepth.cpp:4120-4124, :430-434).
+  std::vector<int64_t> vr_v0, vr_v1;
+  WalkCtx ctx;
+  std::string text;
+  std::vector<std::string> names;
+  std::vector<int64_t> lengths;
+  // inter-window carries (owned by the producer thread after start)
+  std::vector<uint8_t> carry_comp;  // partial BGZF block (compressed)
+  std::vector<uint8_t> carry_rec;   // partial record (decompressed)
+  bool file_eof = false;
+  // producer/consumer handoff
+  std::thread producer;
+  std::mutex mu;
+  std::condition_variable cv;
+  std::deque<StreamWin> q;
+  std::vector<StreamWin> pool;  // consumed windows recycled (their
+                                // vectors keep capacity: no page churn)
+  bool done = false;
+  bool error = false;
+  std::string errmsg;
+  bool stop = false;
+  int64_t total_records = 0;
+  StreamWin cur;
+  bool have_cur = false;
+  int64_t take_pos = 0;  // encoder cursor into cur (take_enc)
+  // feed-progress estimate for the consumer (drives the device-side
+  // finalize-program warm-up): compressed bytes consumed / total to
+  // consume (whole file, or the ranged walk's selected spans)
+  std::atomic<long long> comp_consumed{0};
+  long long comp_total = 0;
+  std::atomic<long long> pairs_produced{0};  // event pairs handed off
+
+  ~StreamBam() {
+    {
+      std::lock_guard<std::mutex> lk(mu);
+      stop = true;
+    }
+    cv.notify_all();
+    if (producer.joinable()) producer.join();
+    if (f) std::fclose(f);
+  }
+
+  void fail(const char* msg) {
+    std::lock_guard<std::mutex> lk(mu);
+    error = true;
+    errmsg = msg;
+    done = true;
+    cv.notify_all();
+  }
+
+  void produce() {
+    // persistent window buffers: pages fault in once, then stay hot —
+    // re-allocating per window costs ~0.25 ms/MB in soft faults, which
+    // at GB/s inflate rates dominates the whole pipeline
+    std::vector<uint8_t> raw;
+    std::vector<uint8_t> dec;
+    std::vector<int64_t> rec_offs;    // parallel-walk record offsets
+    std::vector<EvSink> walk_sinks;   // per-chunk event sinks
+    WalkTeam team;
+    team.start(n_threads - 1);
+    EvSink sink;
+    sink.track_records = false;
+    const bool dbg = std::getenv("PANDEPTH_STREAM_DEBUG") != nullptr;
+    auto now = [] { return std::chrono::steady_clock::now(); };
+    auto ms = [](auto a, auto b) {
+      return std::chrono::duration_cast<std::chrono::microseconds>(
+                 b - a).count() / 1000.0;
+    };
+    // carries live at the FRONT of the persistent buffers; lengths
+    // track the live prefix (raw: compressed tail of a split block,
+    // dec: decompressed tail of a split record)
+    auto prod_t0 = now();
+    double cyc_sum = 0.0;
+    int64_t n_cyc = 0;
+    raw.assign(carry_comp.begin(), carry_comp.end());
+    carry_comp.clear();
+    size_t raw_len = raw.size();
+    dec.assign(carry_rec.begin(), carry_rec.end());
+    carry_rec.clear();
+    size_t dec_carry = dec.size();
+    bool src_eof = file_eof;
+    const bool ranged = !vr_v0.empty();
+    size_t ri = 0;          // next range to open (ranged mode)
+    bool range_open = false;
+    int64_t budget = -1;    // compressed bytes left in current range
+    int64_t raw_abs = 0;    // absolute compressed offset of raw[0]
+    int64_t end_blk = 0;    // compressed offset of the range's last block
+    size_t walk_skip = 0;   // in-block record offset at range start
+    if (ranged) {
+      // header-tail carries are irrelevant: every range begins at an
+      // index-guaranteed record boundary reached by seek
+      raw_len = 0;
+      dec_carry = 0;
+    }
+    for (;;) {
+      {
+        std::lock_guard<std::mutex> lk(mu);
+        if (stop) return;
+      }
+      if (ctx.stream_done) break;
+      if (ranged && !range_open) {
+        if (ri >= vr_v0.size()) break;
+        int64_t c0 = vr_v0[ri] >> 16;
+        // the end block starts at v1>>16 and spans <= 64 KiB: budget
+        // the read to cover it fully, truncate the walk at it below
+        int64_t cend = (vr_v1[ri] >> 16) + 66000;
+        walk_skip = (size_t)(vr_v0[ri] & 0xFFFF);
+        if (fseeko(f, (off_t)c0, SEEK_SET) != 0)
+          return fail("seek failed");
+        budget = cend - c0;
+        raw_abs = c0;
+        end_blk = vr_v1[ri] >> 16;
+        raw_len = 0;
+        dec_carry = 0;
+        src_eof = false;
+        range_open = true;
+        ri++;
+      }
+      auto t0 = now();
+      if (!src_eof) {
+        // cap the compressed backlog at one window: hyper-compressible
+        // inputs hit the decompressed-side cap consuming only a
+        // fraction of each read, and an uncapped backlog is memmove'd
+        // in full every cycle (measured ~30% of the produce wall)
+        size_t want = raw_len >= window_bytes
+                          ? 0
+                          : window_bytes - raw_len;
+        if (ranged && budget < (int64_t)want) want = (size_t)budget;
+        if (raw.size() < raw_len + want)
+          raw.resize(raw_len + want);
+        size_t got = want ? std::fread(raw.data() + raw_len, 1, want,
+                                       f)
+                          : 0;
+        raw_len += got;
+        if (ranged) budget -= (int64_t)got;
+        if (got < want || (ranged && budget <= 0)) src_eof = true;
+      }
+      if (raw_len == 0 && dec_carry == 0 && src_eof) {
+        if (ranged) {
+          // budget bytes never read (end-block truncation / EOF) are
+          // still in comp_total: settle them so frac converges
+          if (budget > 0) {
+            comp_consumed.fetch_add((long long)budget,
+                                    std::memory_order_relaxed);
+            budget = 0;
+          }
+          range_open = false;
+          continue;
+        }
+        break;
+      }
+      auto t1 = now();
+
+      size_t base_dec = dec_carry;
+      sink.es.clear();
+      sink.ee.clear();
+      sink.n_rec = 0;
+      // first window of a range: records start at the chunk voffset's
+      // in-block offset, not at the block boundary
+      size_t off = walk_skip;
+      walk_skip = 0;
+      size_t grand_total = base_dec;
+      size_t consumed = 0;
+      bool walk_failed = false;
+      auto t2 = t1;
+      if (bgzf) {
+        std::vector<Block> blocks;
+        size_t total_out = 0;
+        if (!scan_blocks_partial(raw.data(), raw_len, blocks,
+                                 total_out, consumed))
+          return fail("bad BGZF framing");
+        if (ranged) {
+          // never walk past the range's last block: blocks beyond it
+          // were only read because the budget over-reaches by one
+          // max-size block — drop them and close the range
+          size_t keepb = blocks.size();
+          while (keepb > 0 &&
+                 raw_abs + (int64_t)blocks[keepb - 1].src_off > end_blk)
+            keepb--;
+          if (keepb < blocks.size()) {
+            consumed = blocks[keepb].src_off;
+            total_out = blocks[keepb].out_off;
+            blocks.resize(keepb);
+            // the discarded over-read tail still counts toward the
+            // progress estimate: comp_total budgets it (+66000/range)
+            comp_consumed.fetch_add((long long)(raw_len - consumed),
+                                    std::memory_order_relaxed);
+            raw_len = consumed;  // discard the over-read tail
+            src_eof = true;
+          }
+        }
+        // the window is sized in compressed bytes; hyper-compressible
+        // inputs could inflate it without bound, so also cap the
+        // decompressed side and carry the surplus blocks
+        size_t dec_cap = window_bytes * 4;
+        if (total_out > dec_cap && blocks.size() > 1) {
+          size_t keepb = blocks.size();
+          while (keepb > 1 && blocks[keepb - 1].out_off >= dec_cap)
+            keepb--;
+          consumed = blocks[keepb].src_off;
+          total_out = blocks[keepb].out_off;
+          blocks.resize(keepb);
+        }
+        if (consumed < raw_len && src_eof && blocks.empty()) {
+          if (!ranged) return fail("truncated BGZF block");
+          // ranged read budgets over-reach into the block after the
+          // range's last: a partial trailing block there is expected
+          comp_consumed.fetch_add((long long)raw_len,
+                                  std::memory_order_relaxed);
+          raw_len = 0;
+          consumed = 0;
+        }
+        if (dec.size() < base_dec + total_out)
+          dec.resize(base_dec + total_out);
+        grand_total = base_dec + total_out;
+        // inflate workers race ahead while this thread walks records
+        // chasing the inflated frontier (work-stealing the frontier
+        // block when it is unclaimed) — inflate and walk overlap
+        // within the window, so the producer cycle is inflate-bound
+        size_t nb = blocks.size();
+        std::unique_ptr<std::atomic<uint32_t>[]> done(
+            new std::atomic<uint32_t>[nb + 1]);
+        std::unique_ptr<std::atomic<uint32_t>[]> claim(
+            new std::atomic<uint32_t>[nb + 1]);
+        for (size_t i = 0; i <= nb; i++) {
+          done[i].store(0);
+          claim[i].store(0);
+        }
+        std::atomic<size_t> nexti(0);
+        std::atomic<bool> ok(true);
+        auto try_inflate = [&](size_t k) -> bool {
+          uint32_t expect = 0;
+          if (!claim[k].compare_exchange_strong(expect, 1)) return false;
+          const Block& b = blocks[k];
+          if (b.out_len &&
+              !inflate_block(raw.data() + b.in_off, b.in_len,
+                             dec.data() + base_dec + b.out_off,
+                             b.out_len))
+            ok.store(false);
+          done[k].store(1, std::memory_order_release);
+          return true;
+        };
+        // Stateless filtering (no regions / fetch-window mode 1) lets
+        // the RECORD WALK itself fan out (par_walk): the producer's
+        // scan only jumps the 4-byte length chain (one cache-line
+        // touch per record), work-steals inflate, and PUBLISHES
+        // body-ready 4096-record chunks; the worker team inflates
+        // first and falls through into walking published chunks, each
+        // into its own sink. Scan + inflate + walk all overlap inside
+        // the window, and chunk sinks concatenate in chunk order —
+        // preserving the coordinate order the streaming fold depends
+        // on. The region-cursor mode (2) is stateful by construction
+        // (src/PanDepth.cpp:4608-4671) and keeps the serial chase
+        // walk (the 240M-record deep bench was walk-bound at
+        // ~13M rec/s serial).
+        // OFF by default: on this 4-core host the producer is
+        // inflate/memory-bandwidth-bound and the serial chase already
+        // overlaps inflate and walk near-perfectly — the fan-out
+        // measured SLOWER end-to-end (80M loader-only: 4.6-5.0 s vs
+        // 3.8 s serial; deep 28.2 s vs 23.8 s) because chunk-sink
+        // copies + publication wake latency outweigh the walk
+        // parallelism. Kept behind PANDEPTH_PAR_WALK=1 for
+        // wider-core hosts where the walk, not the memory bus, is
+        // the binding constraint.
+        static const bool par_walk_env = [] {
+          const char* e = std::getenv("PANDEPTH_PAR_WALK");
+          return e && e[0] == '1';
+        }();
+        const bool par_walk =
+            par_walk_env && n_threads > 1 && ctx.region_mode != 2 &&
+            !sink.track_records;
+        const size_t CHUNK = 4096;
+        std::atomic<size_t> chunks_avail(0);
+        std::atomic<size_t> recs_pub(0);
+        std::atomic<size_t> chunk_next(0);
+        std::atomic<bool> scan_done(false);
+        std::atomic<bool> wok(true);
+        if (par_walk) {
+          rec_offs.clear();
+          rec_offs.reserve(grand_total / 36 + 2);  // never
+          //                            reallocates under the workers
+          size_t max_chunks = (grand_total / 36) / CHUNK + 2;
+          if (walk_sinks.size() < max_chunks)
+            walk_sinks.resize(max_chunks);
+        }
+        // workers never touch the vector object itself (push_back
+        // mutates its end pointer concurrently): they read entries
+        // through this stable pointer, bounded by the recs_pub count
+        // released with each chunk publication
+        const int64_t* const rec_base = rec_offs.data();
+        auto walk_one = [&](size_t c) {
+          size_t lo = c * CHUNK;
+          size_t hi = std::min(
+              lo + CHUNK, recs_pub.load(std::memory_order_acquire));
+          EvSink& s = walk_sinks[c];
+          s.track_records = false;  // default-true would silently
+          // accumulate 12 B per record across the whole file
+          s.es.clear();
+          s.ee.clear();
+          s.n_rec = 0;
+          for (size_t i = lo; i < hi; i++) {
+            if (!ctx.process_record(dec.data(), grand_total,
+                                    (size_t)rec_base[i], s)) {
+              wok.store(false);
+              return;
+            }
+          }
+        };
+        // adaptive drain: a worker WALKS a published chunk when one
+        // is available, otherwise helps INFLATE, otherwise naps —
+        // no phase barrier, so early-window slack goes to inflate
+        // and late-window slack to walking (the v2 inflate-then-walk
+        // split left walkers sleeping behind the publish cadence and
+        // measured SLOWER than the serial chase)
+        auto walk_chunks = [&]() {
+          for (;;) {
+            size_t c = chunk_next.load(std::memory_order_relaxed);
+            if (c < chunks_avail.load(std::memory_order_acquire)) {
+              if (chunk_next.compare_exchange_weak(c, c + 1)) {
+                walk_one(c);
+                if (!wok.load(std::memory_order_relaxed)) return;
+              }
+              continue;
+            }
+            if (nexti.load(std::memory_order_relaxed) < nb) {
+              size_t k = nexti.fetch_add(1);
+              if (k < nb) {
+                if (!ok.load(std::memory_order_relaxed)) return;
+                try_inflate(k);
+                continue;
+              }
+            }
+            if (scan_done.load(std::memory_order_acquire) &&
+                chunk_next.load(std::memory_order_acquire) >=
+                    chunks_avail.load(std::memory_order_acquire))
+              return;
+            std::this_thread::sleep_for(
+                std::chrono::microseconds(20));
+          }
+        };
+        team.run([&]() {
+          if (par_walk) {
+            walk_chunks();
+            return;
+          }
+          for (;;) {
+            size_t k = nexti.fetch_add(1);
+            if (k >= nb || !ok.load()) break;
+            try_inflate(k);
+          }
+        });
+        size_t frontier = 0;
+        size_t ready = base_dec;
+        auto wait_ready = [&](size_t need) -> bool {
+          while (ready < need) {
+            if (!ok.load()) return false;
+            if (frontier < nb &&
+                done[frontier].load(std::memory_order_acquire)) {
+              ready += blocks[frontier].out_len;
+              frontier++;
+            } else if (frontier >= nb || !try_inflate(frontier)) {
+              std::this_thread::sleep_for(
+                  std::chrono::microseconds(50));
+            }
+          }
+          return true;
+        };
+        if (par_walk) {
+          size_t published = 0;
+          while (off + 4 <= grand_total && !ctx.stream_done) {
+            if (!wait_ready(std::min(grand_total, off + 4))) break;
+            uint32_t bsz = le32(dec.data() + off);
+            if (off + 4 + (size_t)bsz > grand_total) break;
+            rec_offs.push_back((int64_t)off);
+            off += 4 + (size_t)bsz;
+            if (rec_offs.size() - published * CHUNK >= CHUNK) {
+              // publish once the chunk's BODIES are inflated: the
+              // walkers then never touch the inflate frontier
+              if (!wait_ready(off)) break;
+              recs_pub.store(rec_offs.size(),
+                             std::memory_order_release);
+              published++;
+              chunks_avail.store(published,
+                                 std::memory_order_release);
+            }
+          }
+          if (ok.load() && rec_offs.size() > published * CHUNK) {
+            if (wait_ready(off)) {
+              recs_pub.store(rec_offs.size(),
+                             std::memory_order_release);
+              published++;
+              chunks_avail.store(published,
+                                 std::memory_order_release);
+            }
+          }
+          scan_done.store(true, std::memory_order_release);
+          walk_chunks();  // the producer helps drain
+          team.wait();
+          if (!ok.load()) return fail("BGZF inflate failed");
+          if (!wok.load()) return fail("truncated BAM record");
+          size_t tot = 0;
+          for (size_t c = 0; c < published; c++)
+            tot += walk_sinks[c].es.size();
+          sink.es.reserve(sink.es.size() + tot);
+          sink.ee.reserve(sink.ee.size() + tot);
+          for (size_t c = 0; c < published; c++) {
+            EvSink& s = walk_sinks[c];
+            sink.es.insert(sink.es.end(), s.es.begin(), s.es.end());
+            sink.ee.insert(sink.ee.end(), s.ee.begin(), s.ee.end());
+            sink.n_rec += s.n_rec;
+          }
+        } else {
+          while (off + 4 <= grand_total && !ctx.stream_done) {
+            if (!wait_ready(std::min(grand_total, off + 4))) break;
+            uint32_t bsz = le32(dec.data() + off);
+            if (off + 4 + (size_t)bsz > grand_total) break;
+            if (!wait_ready(off + 4 + (size_t)bsz)) break;
+            size_t nxt = ctx.process_record(dec.data(), grand_total,
+                                            off, sink);
+            if (nxt == 0) {
+              walk_failed = true;
+              break;
+            }
+            off = nxt;
+          }
+          scan_done.store(true, std::memory_order_release);
+          team.wait();
+        }
+        if (!ok.load()) return fail("BGZF inflate failed");
+        if (walk_failed) return fail("truncated BAM record");
+        t2 = now();  // inflate and walk overlapped; report as walk
+      } else {
+        if (dec.size() < base_dec + raw_len)
+          dec.resize(base_dec + raw_len);
+        std::memcpy(dec.data() + base_dec, raw.data(), raw_len);
+        consumed = raw_len;
+        grand_total = base_dec + raw_len;
+        t2 = now();
+        while (off + 4 <= grand_total && !ctx.stream_done) {
+          uint32_t bsz = le32(dec.data() + off);
+          if (off + 4 + (size_t)bsz > grand_total) break;
+          size_t nxt = ctx.process_record(dec.data(), grand_total, off,
+                                          sink);
+          if (nxt == 0) return fail("truncated BAM record");
+          off = nxt;
+        }
+      }
+      auto t3 = now();
+
+      // compact the persistent buffers: unscanned compressed bytes and
+      // the split record's decompressed tail move to the front
+      if (consumed > 0 && consumed < raw_len)
+        std::memmove(raw.data(), raw.data() + consumed,
+                     raw_len - consumed);
+      raw_len -= consumed;
+      raw_abs += (int64_t)consumed;
+      comp_consumed.fetch_add((long long)consumed,
+                              std::memory_order_relaxed);
+      bool range_done = src_eof && raw_len == 0;
+      bool last = ctx.stream_done ||
+                  (range_done && (!ranged || ri >= vr_v0.size()));
+      if (ctx.stream_done) {
+        dec_carry = 0;
+      } else if (ranged && range_done) {
+        // a record split across the range end lies past the last
+        // relevant record (index chunks bound complete records): drop
+        dec_carry = 0;
+        if (budget > 0) {
+          comp_consumed.fetch_add((long long)budget,
+                                  std::memory_order_relaxed);
+          budget = 0;
+        }
+        range_open = false;
+      } else {
+        dec_carry = off < grand_total ? grand_total - off : 0;
+        if (dec_carry > 0) {
+          if (last) return fail("truncated BAM record");
+          std::memmove(dec.data(), dec.data() + off, dec_carry);
+        }
+      }
+
+      auto t4 = now();
+      {
+        std::unique_lock<std::mutex> lk(mu);
+        cv.wait(lk, [&] { return q.size() < 2 || stop; });
+        if (stop) return;
+        StreamWin w;
+        if (!pool.empty()) {
+          w = std::move(pool.back());
+          pool.pop_back();
+        }
+        w.es.swap(sink.es);
+        w.ee.swap(sink.ee);
+        w.n_rec = sink.n_rec;
+        total_records += w.n_rec;
+        pairs_produced.fetch_add((long long)w.es.size(),
+                                 std::memory_order_relaxed);
+        q.push_back(std::move(w));
+        cv.notify_all();
+      }
+      cyc_sum += ms(t0, now());
+      n_cyc++;
+      if (dbg)
+        std::fprintf(stderr,
+                     "[stream] raw=%zuMB dec=%zuMB read=%.1fms "
+                     "inflate+walk=%.1fms post=%.1fms compact=%.1fms "
+                     "qwait=%.1fms cycle=%.1fms rec=%lld\n",
+                     raw_len >> 20, grand_total >> 20, ms(t0, t1),
+                     ms(t1, t2), ms(t2, t3), ms(t3, t4), ms(t4, now()),
+                     ms(t0, now()), (long long)sink.n_rec);
+      if (last) break;
+    }
+    if (dbg)
+      std::fprintf(stderr,
+                   "[stream] produce wall=%.1fms cycles=%lld "
+                   "cycle_sum=%.1fms\n",
+                   ms(prod_t0, now()), (long long)n_cyc, cyc_sum);
+    std::lock_guard<std::mutex> lk(mu);
+    done = true;
+    cv.notify_all();
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// Streaming counterpart of pancov_bam_load (same layout/region
+// semantics). window_bytes <= 0 selects the default (32 MB compressed
+// per window; peak RSS ~ 2 windows). vr: n_vr merged (v0, v1) virtual-
+// offset pairs from the index — when given (region_mode 1 + BGZF only)
+// the producer seeks between them, inflating only target-overlapping
+// spans: the reference's sam_itr block skipping with bounded memory.
+void* pancov_stream_open(const char* path, int n_threads,
+                         uint32_t flags_mask, int32_t min_mapq,
+                         int64_t pad, const int64_t* ext_offsets,
+                         const int64_t* ext_limits, int64_t n_ext,
+                         const int64_t* reg_off,
+                         const int64_t* reg_start,
+                         const int64_t* reg_end, int64_t n_regions,
+                         int region_mode, const int64_t* vr,
+                         int64_t n_vr, int64_t window_bytes,
+                         char* err, int err_len) {
+  auto* sb = new StreamBam();
+  auto fail0 = [&](const char* msg) -> void* {
+    if (err && err_len > 0) std::snprintf(err, err_len, "%s", msg);
+    delete sb;
+    return nullptr;
+  };
+  sb->f = std::fopen(path, "rb");
+  if (!sb->f) return fail0("cannot read file");
+  if (n_threads < 1) n_threads = 1;
+  sb->n_threads = n_threads;
+  if (window_bytes >= (1 << 20)) sb->window_bytes = (size_t)window_bytes;
+
+  // --- synchronous incremental header parse ---
+  {
+    std::vector<uint8_t> raw;
+    std::vector<uint8_t> dec;
+    size_t comp_done = 0;  // raw bytes already scanned+inflated
+    bool got_magic = false;
+    for (;;) {
+      size_t base = raw.size();
+      size_t want = 1 << 16;
+      raw.resize(base + want);
+      size_t got = std::fread(raw.data() + base, 1, want, sb->f);
+      raw.resize(base + got);
+      if (got < want) sb->file_eof = true;
+      if (!got_magic) {
+        if (raw.size() < 2) {
+          if (sb->file_eof) return fail0("not a BAM stream");
+          continue;
+        }
+        sb->bgzf = raw[0] == 0x1f && raw[1] == 0x8b;
+        got_magic = true;
+      }
+      if (sb->bgzf) {
+        std::vector<Block> blocks;
+        size_t total_out = 0, consumed = 0;
+        if (!scan_blocks_partial(raw.data() + comp_done,
+                                 raw.size() - comp_done, blocks,
+                                 total_out, consumed))
+          return fail0("bad BGZF framing");
+        size_t base_dec = dec.size();
+        dec.resize(base_dec + total_out);
+        for (auto& b : blocks) {
+          b.in_off += comp_done;
+          b.src_off += comp_done;
+        }
+        if (!inflate_window(raw.data(), blocks, dec.data() + base_dec,
+                            1))
+          return fail0("BGZF inflate failed");
+        comp_done += consumed;
+      } else {
+        dec.assign(raw.begin(), raw.end());
+        comp_done = raw.size();
+      }
+      size_t hdr_end = 0;
+      int rc = try_parse_header(dec, sb->names, sb->lengths, sb->text,
+                                hdr_end);
+      if (rc < 0) return fail0("not a BAM stream");
+      if (rc == 1) {
+        sb->carry_rec.assign(dec.begin() + hdr_end, dec.end());
+        sb->carry_comp.assign(raw.begin() + comp_done, raw.end());
+        sb->comp_consumed.store((long long)comp_done,
+                                std::memory_order_relaxed);
+        break;
+      }
+      if (sb->file_eof) return fail0("truncated BAM header");
+    }
+  }
+
+  // genome layout (external in multi-sample mode, quirk Q5)
+  if (n_ext > 0) {
+    sb->offsets.assign(ext_offsets, ext_offsets + n_ext);
+    sb->limits.assign(ext_limits, ext_limits + n_ext);
+  } else {
+    int64_t acc = 0;
+    for (size_t i = 0; i < sb->lengths.size(); i++) {
+      sb->offsets.push_back(acc);
+      acc += sb->lengths[i] + pad;
+      sb->limits.push_back(acc);
+    }
+  }
+  if (n_regions > 0) {
+    int64_t nt = (int64_t)(n_ext > 0 ? n_ext : sb->lengths.size());
+    sb->regs_off.assign(reg_off, reg_off + nt + 1);
+    sb->regs_start.assign(reg_start, reg_start + n_regions);
+    sb->regs_end.assign(reg_end, reg_end + n_regions);
+    sb->ctx.reg_off = sb->regs_off.data();
+    sb->ctx.reg_start = sb->regs_start.data();
+    sb->ctx.reg_end = sb->regs_end.data();
+    sb->ctx.n_regions = n_regions;
+    sb->ctx.region_mode = region_mode;
+  }
+  sb->ctx.flags_mask = flags_mask;
+  sb->ctx.min_mapq = min_mapq;
+  sb->ctx.offsets = sb->offsets.data();
+  sb->ctx.limits = sb->limits.data();
+  sb->ctx.n_targets = (int64_t)sb->offsets.size();
+  sb->ctx.init_cursor();
+  // the streaming producer's record walk is the single chaser thread
+  // (unless the opt-in parallel walk shares the ctx across workers)
+  {
+    const char* pw = std::getenv("PANDEPTH_PAR_WALK");
+    sb->ctx.mono_hint = !(pw && pw[0] == '1');
+  }
+
+  // ranged streaming: sorted (v0, v1) pairs, coalesced so that no two
+  // ranges share (or nearly share) a compressed block — each range's
+  // read budget over-reaches ~66 KB past its end block, so gaps below
+  // 128 KB are cheaper to read through than to seek over (and merging
+  // them guarantees no block is ever walked twice). Measured both
+  // ways at 30x deep-gene density (ranges every ~27 KB): block-exact
+  // ranges pay ~150 us of per-range producer-cycle fixed cost (113k
+  // ranges = +4 s on the SPARSE 8M gene row, no gain on the dense
+  // one), so read-through wins on this host even though merged gap
+  // blocks get inflated + walked.
+  if (n_vr > 0 && region_mode == 1 && sb->bgzf) {
+    for (int64_t i = 0; i < n_vr; i++) {
+      int64_t v0 = vr[2 * i], v1 = vr[2 * i + 1];
+      if (v1 <= v0) continue;
+      if (!sb->vr_v0.empty() &&
+          (v0 >> 16) <= (sb->vr_v1.back() >> 16) + (128 << 10)) {
+        if (v1 > sb->vr_v1.back()) sb->vr_v1.back() = v1;
+      } else {
+        sb->vr_v0.push_back(v0);
+        sb->vr_v1.push_back(v1);
+      }
+    }
+  }
+
+  // total compressed bytes the walk will consume: the selected ranged
+  // spans (each range's read budget over-reaches ~66 KB, matched in
+  // produce()), or the whole file
+  if (!sb->vr_v0.empty()) {
+    long long tot = (long long)sb->comp_consumed.load();
+    for (size_t i = 0; i < sb->vr_v0.size(); i++)
+      tot += ((sb->vr_v1[i] >> 16) + 66000) - (sb->vr_v0[i] >> 16);
+    sb->comp_total = tot;
+  } else {
+    off_t cur = ftello(sb->f);
+    if (cur >= 0 && fseeko(sb->f, 0, SEEK_END) == 0) {
+      sb->comp_total = (long long)ftello(sb->f);
+      fseeko(sb->f, cur, SEEK_SET);
+    }
+  }
+
+  sb->producer = std::thread([sb] { sb->produce(); });
+  return sb;
+}
+
+// blocks until the next window is ready; returns its event count,
+// -1 on clean EOF, -2 on error (fetch with pancov_stream_error)
+int64_t pancov_stream_wait(void* h) {
+  auto* sb = (StreamBam*)h;
+  std::unique_lock<std::mutex> lk(sb->mu);
+  if (sb->have_cur) return (int64_t)sb->cur.es.size();
+  sb->cv.wait(lk, [&] { return !sb->q.empty() || sb->done; });
+  if (sb->q.empty()) return sb->error ? -2 : -1;
+  sb->cur = std::move(sb->q.front());
+  sb->q.pop_front();
+  sb->have_cur = true;
+  sb->cv.notify_all();
+  return (int64_t)sb->cur.es.size();
+}
+
+int64_t pancov_stream_win_records(void* h) {
+  auto* sb = (StreamBam*)h;
+  std::lock_guard<std::mutex> lk(sb->mu);
+  return sb->have_cur ? sb->cur.n_rec : 0;
+}
+
+// compressed-byte progress of the producer walk: an ESTIMATE for
+// consumer-side planning (finalize-program warm-up), not an exact
+// accounting — `total` over-counts ranged walks by the per-range read
+// budget slack and `done` trails the records actually handed over
+void pancov_stream_progress(void* h, int64_t* done, int64_t* total,
+                            int64_t* pairs) {
+  auto* sb = (StreamBam*)h;
+  *done = (int64_t)sb->comp_consumed.load(std::memory_order_relaxed);
+  *total = (int64_t)sb->comp_total;
+  *pairs = (int64_t)sb->pairs_produced.load(std::memory_order_relaxed);
+}
+
+namespace {
+
+void release_cur(StreamBam* sb) {
+  std::lock_guard<std::mutex> lk(sb->mu);
+  sb->have_cur = false;
+  sb->take_pos = 0;
+  if (sb->pool.size() < 4)
+    sb->pool.push_back(std::move(sb->cur));
+  sb->cur = StreamWin();
+}
+
+}  // namespace
+
+// take32/take64 drain from take_pos so they compose with a partial
+// take_enc (the fallback when an escape list overflows mid-window)
+void pancov_stream_take32(void* h, int32_t* s, int32_t* e, int64_t cap,
+                          int32_t sentinel) {
+  auto* sb = (StreamBam*)h;
+  int64_t m = (int64_t)sb->cur.es.size() - sb->take_pos;
+  const int64_t* es = sb->cur.es.data() + sb->take_pos;
+  const int64_t* ee = sb->cur.ee.data() + sb->take_pos;
+  if (m > cap) m = cap;
+  for (int64_t i = 0; i < m; i++) {
+    s[i] = (int32_t)es[i];
+    e[i] = (int32_t)ee[i];
+  }
+  for (int64_t i = m; i < cap; i++) {
+    s[i] = sentinel;
+    e[i] = sentinel;
+  }
+  release_cur(sb);
+}
+
+void pancov_stream_take64(void* h, int64_t* s, int64_t* e) {
+  auto* sb = (StreamBam*)h;
+  int64_t m = (int64_t)sb->cur.es.size() - sb->take_pos;
+  std::memcpy(s, sb->cur.es.data() + sb->take_pos,
+              (size_t)m * sizeof(int64_t));
+  std::memcpy(e, sb->cur.ee.data() + sb->take_pos,
+              (size_t)m * sizeof(int64_t));
+  release_cur(sb);
+}
+
+int64_t pancov_stream_win_remaining(void* h) {
+  auto* sb = (StreamBam*)h;
+  return (int64_t)sb->cur.es.size() - sb->take_pos;
+}
+
+// Compact event encoding for the device link (~2 B/event vs 8):
+// consumes up to `cap` (start, end) pairs of the current window.
+// d8[i] = zigzag(start_i - start_{i-1}) when it fits [0, 254], else
+// 255 with the true int64 delta appended to excd; l8[i] =
+// end_i - start_i when < 255, else 255 with the true int64 length
+// appended to excl. *base_out = first encoded start (so d8[0]
+// encodes delta 0). Tails of all four buffers are zeroed (a zero
+// slot decodes to a zero-length event at the previous position —
+// depth-neutral). Returns pairs encoded; 0 when the window is
+// exhausted (releasing it — call wait() for the next). Stops early
+// when an escape list would overflow exc_cap (the caller falls back
+// to take32/take64 for pathological inputs). Positions are full
+// int64 (escapes carry any magnitude; the wire bytes stay 2/event).
+int64_t pancov_stream_take_enc(void* h, uint8_t* d8, uint8_t* l8,
+                               int64_t* excd, int64_t* excl,
+                               int64_t cap, int64_t exc_cap,
+                               int64_t* base_out, int64_t* n_excd_out,
+                               int64_t* n_excl_out) {
+  auto* sb = (StreamBam*)h;
+  const auto& es = sb->cur.es;
+  const auto& ee = sb->cur.ee;
+  int64_t m = (int64_t)es.size();
+  int64_t i = sb->take_pos;
+  *n_excd_out = 0;
+  *n_excl_out = 0;
+  *base_out = 0;
+  if (i >= m) {
+    release_cur(sb);
+    return 0;
+  }
+  int64_t n = 0, nd = 0, nl = 0;
+  int64_t prev = es[i];
+  *base_out = prev;
+  while (i < m && n < cap) {
+    // (the first pair can never stall: its delta is 0 and a length
+    // escape fits while nl == 0 < exc_cap; -1 below is still guarded)
+    int64_t s = es[i];
+    int64_t len64 = ee[i] - es[i];
+    int64_t delta = s - prev;
+    uint64_t zz = ((uint64_t)delta << 1) ^ (uint64_t)(delta >> 63);
+    bool de = zz >= 255;
+    bool le = len64 >= 255;
+    if ((de && nd >= exc_cap) || (le && nl >= exc_cap)) break;
+    d8[n] = de ? 255 : (uint8_t)zz;
+    if (de) excd[nd++] = delta;
+    l8[n] = le ? 255 : (uint8_t)len64;
+    if (le) excl[nl++] = len64;
+    prev = s;
+    i++;
+    n++;
+  }
+  sb->take_pos = i;
+  if (n == 0) return -1;  // stall: drain the rest via take32/take64
+  std::memset(d8 + n, 0, (size_t)(cap - n));
+  std::memset(l8 + n, 0, (size_t)(cap - n));
+  std::memset(excd + nd, 0, sizeof(int64_t) * (size_t)(exc_cap - nd));
+  std::memset(excl + nl, 0, sizeof(int64_t) * (size_t)(exc_cap - nl));
+  *n_excd_out = nd;
+  *n_excl_out = nl;
+  return n;
+}
+
+// Accumulating encoder: fills the buffer ACROSS stream windows
+// (blocking on the producer as needed) so every upload is a full
+// cap-size buffer — padding waste in the device sort stays O(1/K)
+// instead of O(windows). Returns pairs encoded (0 = clean EOF,
+// -2 = stream error). The delta chain runs through window seams, so
+// no seam fixups are needed. Templated over the code width: uint8
+// (escape at 255; 2 B/pair, deep-coverage profile) and uint16
+// (escape at 65535; 4 B/pair — sparse-coverage runs where start gaps
+// exceed the 8-bit zigzag range, detected by the caller via a
+// saturated escape list).
+}  // extern "C" (template below needs C++ linkage)
+}  // outer extern "C" level
+
+namespace {
+template <typename T>
+int64_t take_enc_acc_impl(StreamBam* sb, T* dd, T* ll,
+                          int64_t* excd, int64_t* excl,
+                          int64_t cap, int64_t exc_cap,
+                          int64_t* base_out, int64_t* n_excd_out,
+                          int64_t* n_excl_out) {
+  int64_t n = 0, nd = 0, nl = 0;
+  int64_t prev = 0;
+  bool have_base = false;
+  *base_out = 0;
+  for (;;) {
+    {
+      std::unique_lock<std::mutex> lk(sb->mu);
+      if (!sb->have_cur) {
+        sb->cv.wait(lk, [&] { return !sb->q.empty() || sb->done; });
+        if (sb->q.empty()) {
+          if (sb->error && n == 0) return -2;
+          break;  // EOF (or error after partial data: surface it on
+                  // the NEXT call so accumulated pairs are not lost)
+        }
+        sb->cur = std::move(sb->q.front());
+        sb->q.pop_front();
+        sb->have_cur = true;
+        sb->cv.notify_all();
+      }
+    }
+    const auto& es = sb->cur.es;
+    const auto& ee = sb->cur.ee;
+    int64_t m = (int64_t)es.size();
+    int64_t i = sb->take_pos;
+    if (i >= m) {
+      release_cur(sb);
+      continue;
+    }
+    if (!have_base) {
+      prev = es[i];
+      *base_out = prev;
+      have_base = true;
+    }
+    bool full = false;
+    const uint64_t kEsc = (uint64_t)std::numeric_limits<T>::max();
+    while (i < m) {
+      if (n >= cap) {
+        full = true;
+        break;
+      }
+      int64_t s = es[i];
+      int64_t len64 = ee[i] - es[i];
+      int64_t delta = s - prev;
+      uint64_t zz = ((uint64_t)delta << 1) ^ (uint64_t)(delta >> 63);
+      bool de = zz >= kEsc;
+      bool le = (uint64_t)len64 >= kEsc;
+      if ((de && nd >= exc_cap) || (le && nl >= exc_cap)) {
+        full = true;  // escape list full: hand out a partial buffer
+        break;
+      }
+      dd[n] = de ? (T)kEsc : (T)zz;
+      if (de) excd[nd++] = delta;
+      ll[n] = le ? (T)kEsc : (T)len64;
+      if (le) excl[nl++] = len64;
+      prev = s;
+      i++;
+      n++;
+    }
+    sb->take_pos = i;
+    if (i >= m) release_cur(sb);
+    if (full) break;
+  }
+  std::memset(dd + n, 0, sizeof(T) * (size_t)(cap - n));
+  std::memset(ll + n, 0, sizeof(T) * (size_t)(cap - n));
+  std::memset(excd + nd, 0, sizeof(int64_t) * (size_t)(exc_cap - nd));
+  std::memset(excl + nl, 0, sizeof(int64_t) * (size_t)(exc_cap - nl));
+  *n_excd_out = nd;
+  *n_excl_out = nl;
+  return n;
+}
+}  // namespace
+
+extern "C" {
+extern "C" {
+
+int64_t pancov_stream_take_enc_acc(void* h, uint8_t* d8, uint8_t* l8,
+                                   int64_t* excd, int64_t* excl,
+                                   int64_t cap, int64_t exc_cap,
+                                   int64_t* base_out,
+                                   int64_t* n_excd_out,
+                                   int64_t* n_excl_out) {
+  return take_enc_acc_impl<uint8_t>((StreamBam*)h, d8, l8, excd, excl,
+                                    cap, exc_cap, base_out, n_excd_out,
+                                    n_excl_out);
+}
+
+int64_t pancov_stream_take_enc_acc16(void* h, uint16_t* d16,
+                                     uint16_t* l16, int64_t* excd,
+                                     int64_t* excl, int64_t cap,
+                                     int64_t exc_cap,
+                                     int64_t* base_out,
+                                     int64_t* n_excd_out,
+                                     int64_t* n_excl_out) {
+  return take_enc_acc_impl<uint16_t>((StreamBam*)h, d16, l16, excd,
+                                     excl, cap, exc_cap, base_out,
+                                     n_excd_out, n_excl_out);
+}
+
+int64_t pancov_stream_n_records(void* h) {
+  auto* sb = (StreamBam*)h;
+  std::lock_guard<std::mutex> lk(sb->mu);
+  return sb->total_records;
+}
+
+void pancov_stream_error(void* h, char* err, int err_len) {
+  auto* sb = (StreamBam*)h;
+  std::lock_guard<std::mutex> lk(sb->mu);
+  if (err && err_len > 0)
+    std::snprintf(err, err_len, "%s", sb->errmsg.c_str());
+}
+
+int64_t pancov_stream_n_targets(void* h) {
+  return (int64_t)((StreamBam*)h)->names.size();
+}
+
+int64_t pancov_stream_name_len(void* h, int64_t i) {
+  return (int64_t)((StreamBam*)h)->names[i].size();
+}
+
+void pancov_stream_name(void* h, int64_t i, char* dst) {
+  const auto& s = ((StreamBam*)h)->names[i];
+  std::memcpy(dst, s.data(), s.size());
+}
+
+int64_t pancov_stream_target_len(void* h, int64_t i) {
+  return ((StreamBam*)h)->lengths[i];
+}
+
+int64_t pancov_stream_text_len(void* h) {
+  return (int64_t)((StreamBam*)h)->text.size();
+}
+
+void pancov_stream_text(void* h, char* dst) {
+  const auto& s = ((StreamBam*)h)->text;
+  std::memcpy(dst, s.data(), s.size());
+}
+
+void pancov_stream_close(void* h) { delete (StreamBam*)h; }
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// PAF parsing straight to depth intervals (reference engine semantics,
+// src/PanDepth.cpp:1534-1618): tp:A:S substring filter when the FLAG
+// mask has 0x100, col-12 mapq < q drop, start/end swap, cg:Z: CIGAR
+// expansion (M/=/X add, D/N skip) or [start-1, end) span fill, unknown
+// target names resolving to tid 0.
+
+namespace {
+
+struct PafLoad {
+  std::vector<int64_t> starts, ends;
+  int64_t n_lines = 0;
+};
+
+// whole-file gzip-transparent read (plain gzip members, not BGZF)
+bool read_text_maybe_gz(const char* path, std::vector<uint8_t>& out) {
+  std::vector<uint8_t> raw;
+  if (!read_file(path, raw)) return false;
+  if (raw.size() >= 2 && raw[0] == 0x1f && raw[1] == 0x8b) {
+    z_stream zs;
+    std::memset(&zs, 0, sizeof(zs));
+    if (inflateInit2(&zs, 15 + 32) != Z_OK) return false;
+    out.resize(raw.size() * 4 + (1 << 16));
+    zs.next_in = raw.data();
+    zs.avail_in = (uInt)raw.size();
+    size_t w = 0;
+    int rc;
+    do {
+      if (w == out.size()) out.resize(out.size() * 2);
+      zs.next_out = out.data() + w;
+      zs.avail_out = (uInt)(out.size() - w);
+      rc = inflate(&zs, Z_NO_FLUSH);
+      w = out.size() - zs.avail_out;
+      if (rc == Z_STREAM_END && zs.avail_in > 0) {
+        // concatenated gzip members
+        if (inflateReset2(&zs, 15 + 32) != Z_OK) break;
+        rc = Z_OK;
+      }
+    } while (rc == Z_OK);
+    inflateEnd(&zs);
+    if (rc != Z_STREAM_END && rc != Z_OK) return false;
+    out.resize(w);
+  } else {
+    out = std::move(raw);
+  }
+  return true;
+}
+
+}  // namespace
+
+}  // extern "C" (BAM load API)
+
+extern "C" {
+
+// names_blob: '\0'-joined contig names defining tids 0..n_names-1.
+// offsets/limits: genome layout per tid. Returns handle or null.
+void* pancov_paf_load(const char* path, uint32_t flags_mask,
+                      int32_t min_mapq, const char* names_blob,
+                      int64_t names_len, int64_t n_names,
+                      const int64_t* offsets, const int64_t* limits,
+                      char* err, int err_len) {
+  auto fail = [&](const char* m) -> void* {
+    if (err && err_len > 0) std::snprintf(err, err_len, "%s", m);
+    return nullptr;
+  };
+  std::vector<uint8_t> text;
+  if (!read_text_maybe_gz(path, text)) return fail("cannot read PAF");
+
+  // name -> tid (missing names resolve to 0, reference map quirk)
+  std::vector<std::pair<std::string, int64_t>> names;
+  {
+    int64_t tid = 0;
+    const char* p = names_blob;
+    const char* end = names_blob + names_len;
+    while (p < end && tid < n_names) {
+      size_t l = strnlen(p, end - p);
+      names.emplace_back(std::string(p, l), tid++);
+      p += l + 1;
+    }
+  }
+  std::sort(names.begin(), names.end());
+  auto tid_of = [&](const char* s, size_t l) -> int64_t {
+    auto it = std::lower_bound(
+        names.begin(), names.end(),
+        std::make_pair(std::string(s, l), (int64_t)-1));
+    if (it != names.end() && it->first.size() == l &&
+        std::memcmp(it->first.data(), s, l) == 0)
+      return it->second;
+    return 0;
+  };
+
+  auto* pl = new PafLoad();
+  bool sec_filter = (flags_mask & 0x100) != 0;
+  const char* p = (const char*)text.data();
+  const char* end = p + text.size();
+  while (p < end) {
+    const char* nl = (const char*)memchr(p, '\n', end - p);
+    const char* le = nl ? nl : end;
+    if (le == p) {
+      p = le + 1;
+      continue;
+    }
+    pl->n_lines++;
+    // split into fields
+    const char* f[64];
+    size_t fl[64];
+    int nf = 0;
+    const char* q = p;
+    while (q < le && nf < 64) {
+      const char* t = q;
+      while (q < le && *q != '\t' && *q != ' ') q++;
+      if (q > t) {
+        f[nf] = t;
+        fl[nf] = q - t;
+        nf++;
+      }
+      while (q < le && (*q == '\t' || *q == ' ')) q++;
+    }
+    bool drop = false;
+    if (sec_filter) {
+      // substring search over the whole line (reference line.find)
+      static const char pat[] = "tp:A:S";
+      for (const char* s = p; s + 6 <= le; s++)
+        if (std::memcmp(s, pat, 6) == 0) {
+          drop = true;
+          break;
+        }
+    }
+    if (!drop && nf >= 12) {
+      int64_t qual = atoll(std::string(f[11], fl[11]).c_str());
+      if (qual < min_mapq) drop = true;
+      if (!drop) {
+        int64_t tid = tid_of(f[5], fl[5]);
+        int64_t s = atoll(std::string(f[7], fl[7]).c_str());
+        int64_t e = atoll(std::string(f[8], fl[8]).c_str());
+        if (s > e) std::swap(s, e);
+        int cg = -1;
+        for (int i = 0; i < nf; i++)
+          if (fl[i] >= 5 && std::memcmp(f[i], "cg:Z:", 5) == 0) {
+            if (i > 1) cg = i;
+            break;
+          }
+        int64_t floor = offsets[tid], limit = limits[tid];
+        auto emit = [&](int64_t a, int64_t b) {
+          a += floor;
+          b += floor;
+          a = a < floor ? floor : (a > limit ? limit : a);
+          b = b < floor ? floor : (b > limit ? limit : b);
+          if (b > a) {
+            pl->starts.push_back(a);
+            pl->ends.push_back(b);
+          }
+        };
+        if (cg >= 0) {
+          const char* c = f[cg] + 5;
+          const char* ce = f[cg] + fl[cg];
+          int64_t cur = s;
+          while (c < ce) {
+            int64_t num = 0;
+            while (c < ce && *c >= '0' && *c <= '9')
+              num = num * 10 + (*c++ - '0');
+            if (c >= ce) break;
+            char op = *c++;
+            if (op == 'M' || op == '=' || op == 'X') {
+              emit(cur, cur + num);
+              cur += num;
+            } else if (op == 'D' || op == 'N') {
+              cur += num;
+            }
+          }
+        } else {
+          emit(s - 1, e);
+        }
+      }
+    }
+    p = le + 1;
+  }
+  return pl;
+}
+
+// SAM text straight to depth intervals: FLAG/MAPQ filters and
+// M/=/X-add, D/N-skip CIGAR semantics identical to the BAM walker.
+// names_blob defines the tid space (the caller's contig table, which
+// in multi-sample mode is the FIRST file's); unknown RNAMEs drop.
+void* pancov_sam_load(const char* path, uint32_t flags_mask,
+                      int32_t min_mapq, const char* names_blob,
+                      int64_t names_len, int64_t n_names,
+                      const int64_t* offsets, const int64_t* limits,
+                      char* err, int err_len) {
+  auto fail = [&](const char* m) -> void* {
+    if (err && err_len > 0) std::snprintf(err, err_len, "%s", m);
+    return nullptr;
+  };
+  std::vector<uint8_t> text;
+  if (!read_text_maybe_gz(path, text)) return fail("cannot read SAM");
+
+  std::vector<std::pair<std::string, int64_t>> names;
+  {
+    int64_t tid = 0;
+    const char* p = names_blob;
+    const char* end = names_blob + names_len;
+    while (p < end && tid < n_names) {
+      size_t l = strnlen(p, end - p);
+      names.emplace_back(std::string(p, l), tid++);
+      p += l + 1;
+    }
+  }
+  std::sort(names.begin(), names.end());
+  auto tid_of = [&](const char* s, size_t l) -> int64_t {
+    auto it = std::lower_bound(
+        names.begin(), names.end(),
+        std::make_pair(std::string(s, l), (int64_t)-1));
+    if (it != names.end() && it->first.size() == l &&
+        std::memcmp(it->first.data(), s, l) == 0)
+      return it->second;
+    return -1;
+  };
+
+  auto* pl = new PafLoad();  // same (starts, ends, n_lines) payload
+  const char* p = (const char*)text.data();
+  const char* end = p + text.size();
+  while (p < end) {
+    const char* nl = (const char*)memchr(p, '\n', end - p);
+    const char* le = nl ? nl : end;
+    if (le == p || *p == '@') {
+      p = le + 1;
+      continue;
+    }
+    // fields: QNAME FLAG RNAME POS MAPQ CIGAR ...
+    const char* f[8];
+    size_t fl[8];
+    int nf = 0;
+    const char* q = p;
+    while (q < le && nf < 7) {
+      const char* t = q;
+      while (q < le && *q != '\t') q++;
+      f[nf] = t;
+      fl[nf] = q - t;
+      nf++;
+      if (q < le) q++;
+    }
+    if (nf >= 6) {
+      pl->n_lines++;
+      int64_t flag = atoll(std::string(f[1], fl[1]).c_str());
+      int64_t tid = tid_of(f[2], fl[2]);
+      int64_t pos0 = atoll(std::string(f[3], fl[3]).c_str()) - 1;
+      int64_t mq = atoll(std::string(f[4], fl[4]).c_str());
+      bool keep = tid >= 0 && !(flag & flags_mask) &&
+                  !(min_mapq >= 1 && mq < min_mapq) &&
+                  !(fl[5] == 1 && f[5][0] == '*');
+      if (keep) {
+        int64_t floor = offsets[tid], limit = limits[tid];
+        int64_t cur = floor + pos0;
+        const char* c = f[5];
+        const char* ce = f[5] + fl[5];
+        while (c < ce) {
+          int64_t num = 0;
+          while (c < ce && *c >= '0' && *c <= '9')
+            num = num * 10 + (*c++ - '0');
+          if (c >= ce) break;
+          char op = *c++;
+          if (op == 'M' || op == '=' || op == 'X') {
+            int64_t a = cur < floor ? floor
+                                    : (cur > limit ? limit : cur);
+            int64_t b = cur + num;
+            b = b < floor ? floor : (b > limit ? limit : b);
+            if (b > a) {
+              pl->starts.push_back(a);
+              pl->ends.push_back(b);
+            }
+            cur += num;
+          } else if (op == 'D' || op == 'N') {
+            cur += num;
+          }
+        }
+      }
+    }
+    p = le + 1;
+  }
+  return pl;
+}
+
+int64_t pancov_paf_n_events(void* h) {
+  return (int64_t)((PafLoad*)h)->starts.size();
+}
+
+int64_t pancov_paf_n_lines(void* h) { return ((PafLoad*)h)->n_lines; }
+
+void pancov_paf_events32(void* h, int32_t* starts, int32_t* ends,
+                         int64_t cap, int32_t sentinel) {
+  auto* pl = (PafLoad*)h;
+  int64_t m = (int64_t)pl->starts.size();
+  for (int64_t i = 0; i < m; i++) {
+    starts[i] = (int32_t)pl->starts[i];
+    ends[i] = (int32_t)pl->ends[i];
+  }
+  for (int64_t i = m; i < cap; i++) {
+    starts[i] = sentinel;
+    ends[i] = sentinel;
+  }
+}
+
+void pancov_paf_events64(void* h, int64_t* starts, int64_t* ends) {
+  auto* pl = (PafLoad*)h;
+  std::memcpy(starts, pl->starts.data(),
+              pl->starts.size() * sizeof(int64_t));
+  std::memcpy(ends, pl->ends.data(),
+              pl->ends.size() * sizeof(int64_t));
+}
+
+void pancov_paf_close(void* h) { delete (PafLoad*)h; }
+
+// ---------------------------------------------------------------------
+// PAF contig table (reference src/PanDepth.cpp:919-943): first-seen
+// order of columns 6-7. The Python line scan runs ~300k lines/s; this
+// memchr tokenizer does the 8M-line / 560 MB bench file in ~1.5 s.
+// Matches io/paf.py:paf_contig_table exactly: lines with < 7
+// whitespace-separated tokens are skipped.
+
+namespace {
+struct PafContigs {
+  std::string names_blob;  // NUL-separated, first-seen order
+  std::vector<int64_t> lens;
+};
+}  // namespace
+
+void* pancov_paf_contigs(const char* path, char* err, int err_len) {
+  std::vector<uint8_t> text;
+  if (!read_text_maybe_gz(path, text)) {
+    if (err && err_len > 0)
+      std::snprintf(err, err_len, "cannot read PAF: %s", path);
+    return nullptr;
+  }
+  auto* pc = new PafContigs();
+  std::unordered_set<std::string> seen;
+  const char* p = (const char*)text.data();
+  const char* end = p + text.size();
+  std::string name;
+  while (p < end) {
+    const char* nl = (const char*)memchr(p, '\n', end - p);
+    const char* le = nl ? nl : end;
+    if (le > p && le[-1] == '\r') le--;  // iter_text_lines strips \r
+    const char* f[8];
+    size_t fl[8];
+    int nf = 0;
+    const char* q = p;
+    while (q < le && nf < 8) {
+      const char* t = q;
+      while (q < le && *q != '\t' && *q != ' ') q++;
+      if (q > t) {
+        f[nf] = t;
+        fl[nf] = q - t;
+        nf++;
+      }
+      if (q < le) q++;
+    }
+    p = nl ? nl + 1 : end;
+    if (nf < 7) continue;
+    name.assign(f[5], fl[5]);
+    if (seen.insert(name).second) {
+      pc->names_blob.append(name);
+      pc->names_blob.push_back('\0');
+      int64_t ln = 0;
+      bool neg = false;
+      const char* d = f[6];
+      const char* de = f[6] + fl[6];
+      if (d < de && (*d == '-' || *d == '+')) neg = (*d++ == '-');
+      while (d < de && *d >= '0' && *d <= '9') ln = ln * 10 + (*d++ - '0');
+      pc->lens.push_back(neg ? -ln : ln);
+    }
+  }
+  return pc;
+}
+
+int64_t pancov_paf_contigs_count(void* h) {
+  return (int64_t)((PafContigs*)h)->lens.size();
+}
+
+int64_t pancov_paf_contigs_blob_len(void* h) {
+  return (int64_t)((PafContigs*)h)->names_blob.size();
+}
+
+void pancov_paf_contigs_blob(void* h, char* dst) {
+  const auto& b = ((PafContigs*)h)->names_blob;
+  std::memcpy(dst, b.data(), b.size());
+}
+
+void pancov_paf_contigs_lens(void* h, int64_t* dst) {
+  const auto& l = ((PafContigs*)h)->lens;
+  std::memcpy(dst, l.data(), l.size() * sizeof(int64_t));
+}
+
+void pancov_paf_contigs_free(void* h) { delete (PafContigs*)h; }
+
+// ---------------------------------------------------------------------
+// GFF/GTF feature-row tokenizer (the reference's target parsing,
+// src/PanDepth.cpp:3547-3905, is C++ too). Emits columnar
+// (tid, start, end) plus concatenated gene-id bytes; the GeneInfo
+// merge semantics — including the documented quirks — stay in
+// targets/model.py (GeneAccumulator.add_bulk consumes these columns).
+
+struct TargetsLoad {
+  std::vector<int64_t> tid, start, end, id_off;  // id_off has n+1
+  std::string ids;
+};
+
+// full-token integer (targets/parse.py _is_int: [+-]?\d+$)
+static bool tok_is_int(const char* s, size_t l) {
+  size_t i = 0;
+  if (i < l && (s[i] == '+' || s[i] == '-')) i++;
+  if (i >= l) return false;
+  for (; i < l; i++)
+    if (s[i] < '0' || s[i] > '9') return false;
+  return true;
+}
+
+// names_blob: '\0'-joined names; tids[i] gives the tid of name i
+// (the Python chr2tid dict, which need not be dense). mode: 1 = GFF
+// (id = first attribute's value, overridden by a Parent= attribute;
+// attributes split on , or ; dropping empties; value = text after the
+// LAST '='), 2 = GTF (strip '"' and ';', split on space/tab, id =
+// token 10 — reference quirk Q3), 3 = BED3 (id = Chr_Start_End from
+// the ORIGINAL string columns; short rows inherit the previous row's
+// start/end strings — the reference declares them outside the loop,
+// src/PanDepth.cpp:3742-3744), 4 = BED4 (id = column 4, inherited
+// when missing; non-integer start/end read as 0). Unknown chroms and
+// start > end rows print the reference-matching warning and drop.
+void* pancov_targets_load(const char* path, const char* feature,
+                          int mode, const char* names_blob,
+                          int64_t names_len, int64_t n_names,
+                          const int64_t* tids, char* err,
+                          int err_len) {
+  auto fail = [&](const char* m) -> void* {
+    if (err && err_len > 0) std::snprintf(err, err_len, "%s", m);
+    return nullptr;
+  };
+  std::vector<uint8_t> text;
+  if (!read_text_maybe_gz(path, text)) return fail("cannot read GFF");
+
+  std::vector<std::pair<std::string, int64_t>> names;
+  {
+    int64_t i = 0;
+    const char* p = names_blob;
+    const char* end = names_blob + names_len;
+    while (p < end && i < n_names) {
+      size_t l = strnlen(p, end - p);
+      names.emplace_back(std::string(p, l), tids[i++]);
+      p += l + 1;
+    }
+  }
+  std::sort(names.begin(), names.end());
+  auto tid_of = [&](const char* s, size_t l) -> int64_t {
+    auto it = std::lower_bound(
+        names.begin(), names.end(),
+        std::make_pair(std::string(s, l), (int64_t)-1));
+    if (it != names.end() && it->first.size() == l &&
+        std::memcmp(it->first.data(), s, l) == 0)
+      return it->second;
+    return -1;
+  };
+
+  const size_t flen = std::strlen(feature);
+  auto* tl = new TargetsLoad();
+  tl->id_off.push_back(0);
+  std::string clean;  // GTF scratch
+  std::string bed_start_s, bed_end_s, bed_id;  // cross-row BED state
+  const char* p = (const char*)text.data();
+  const char* end = p + text.size();
+  while (p < end) {
+    const char* nl = (const char*)memchr(p, '\n', end - p);
+    const char* le = nl ? nl : end;
+    const char* next = le + 1;
+    while (le > p && le[-1] == '\r') le--;  // iter_text_lines rstrip
+    if (le == p || *p == '#') {
+      p = next;
+      continue;
+    }
+    const char* f[16];
+    size_t fl[16];
+    int nf = 0;
+    const char* idp = nullptr;
+    size_t idl = 0;
+    int64_t s1 = 0, e1 = 0;
+    const char* chrom = nullptr;
+    size_t chroml = 0;
+    if (mode == 1) {  // GFF: split on any whitespace (str.split())
+      const char* q = p;
+      while (q < le && nf < 16) {
+        while (q < le && (*q == ' ' || *q == '\t' || *q == '\r' ||
+                          *q == '\v' || *q == '\f'))
+          q++;
+        const char* t = q;
+        while (q < le && !(*q == ' ' || *q == '\t' || *q == '\r' ||
+                           *q == '\v' || *q == '\f'))
+          q++;
+        if (q > t) {
+          f[nf] = t;
+          fl[nf] = q - t;
+          nf++;
+        }
+      }
+      if (nf < 9 || fl[2] != flen ||
+          std::memcmp(f[2], feature, flen) != 0) {
+        p = next;
+        continue;
+      }
+      chrom = f[0];
+      chroml = fl[0];
+      s1 = atoll(std::string(f[3], fl[3]).c_str());
+      e1 = atoll(std::string(f[4], fl[4]).c_str());
+      // attributes: split on , or ; dropping empties; id = value of
+      // the first attribute, overridden by Parent=...
+      const char* a = f[8];
+      const char* ae = f[8] + fl[8];
+      bool first = true;
+      while (a < ae) {
+        while (a < ae && (*a == ',' || *a == ';')) a++;
+        const char* t = a;
+        while (a < ae && *a != ',' && *a != ';') a++;
+        if (a == t) continue;
+        // split("=") semantics: key is the text before the FIRST
+        // '=', the value taken is after the LAST '=' ([-1])
+        const char* eq_first = nullptr;
+        const char* eq_last = nullptr;
+        for (const char* c = t; c < a; c++)
+          if (*c == '=') {
+            if (!eq_first) eq_first = c;
+            eq_last = c;
+          }
+        const char* val = eq_last ? eq_last + 1 : t;
+        size_t vall = a - val;
+        if (first) {
+          idp = val;
+          idl = vall;
+          first = false;
+        } else if (eq_first && (size_t)(eq_first - t) == 6 &&
+                   std::memcmp(t, "Parent", 6) == 0) {
+          idp = val;
+          idl = vall;
+        }
+      }
+      if (first) {  // no attributes at all
+        p = next;
+        continue;
+      }
+    } else if (mode >= 3) {  // BED3 / BED4: split on any whitespace
+      const char* q = p;
+      while (q < le && nf < 16) {
+        while (q < le && (*q == ' ' || *q == '\t' || *q == '\r' ||
+                          *q == '\v' || *q == '\f'))
+          q++;
+        const char* t = q;
+        while (q < le && !(*q == ' ' || *q == '\t' || *q == '\r' ||
+                           *q == '\v' || *q == '\f'))
+          q++;
+        if (q > t) {
+          f[nf] = t;
+          fl[nf] = q - t;
+          nf++;
+        }
+      }
+      if (nf == 0) {
+        p = next;
+        continue;
+      }
+      chrom = f[0];
+      chroml = fl[0];
+      if (mode == 3) {
+        if (nf > 1) bed_start_s.assign(f[1], fl[1]);
+        if (nf > 2) bed_end_s.assign(f[2], fl[2]);
+        clean.assign(chrom, chroml);  // id scratch: Chr_Start_End
+        clean += '_';
+        clean += bed_start_s;
+        clean += '_';
+        clean += bed_end_s;
+        idp = clean.data();
+        idl = clean.size();
+        s1 = atoll(bed_start_s.c_str());
+        e1 = atoll(bed_end_s.c_str());
+      } else {
+        s1 = (nf > 1 && tok_is_int(f[1], fl[1]))
+                 ? atoll(std::string(f[1], fl[1]).c_str())
+                 : 0;
+        e1 = (nf > 2 && tok_is_int(f[2], fl[2]))
+                 ? atoll(std::string(f[2], fl[2]).c_str())
+                 : 0;
+        if (nf > 3) bed_id.assign(f[3], fl[3]);
+        idp = bed_id.data();
+        idl = bed_id.size();
+      }
+      if (s1 > e1) {
+        std::fprintf(stderr,
+                     "%.*sWarning: This region may be incorrect.\n\n",
+                     (int)(le - p), p);
+        p = next;
+        continue;
+      }
+    } else {  // GTF: strip '"' and ';', split on space/tab only
+      clean.clear();
+      for (const char* c = p; c < le; c++)
+        if (*c != '"' && *c != ';') clean.push_back(*c);
+      const char* q = clean.data();
+      const char* ce = q + clean.size();
+      while (q < ce && nf < 16) {
+        while (q < ce && (*q == ' ' || *q == '\t')) q++;
+        const char* t = q;
+        while (q < ce && *q != ' ' && *q != '\t') q++;
+        if (q > t) {
+          f[nf] = t;
+          fl[nf] = q - t;
+          nf++;
+        }
+      }
+      if (nf < 10 || fl[2] != flen ||
+          std::memcmp(f[2], feature, flen) != 0) {
+        p = next;
+        continue;
+      }
+      chrom = f[0];
+      chroml = fl[0];
+      s1 = atoll(std::string(f[3], fl[3]).c_str());
+      e1 = atoll(std::string(f[4], fl[4]).c_str());
+      idp = f[9];
+      idl = fl[9];
+    }
+    int64_t tid = tid_of(chrom, chroml);
+    if (tid < 0) {
+      std::fprintf(stderr,
+                   "%.*sWarning: This region may be incorrect.\n\n",
+                   (int)(le - p), p);
+      p = next;
+      continue;
+    }
+    tl->tid.push_back(tid);
+    tl->start.push_back(s1);
+    tl->end.push_back(e1);
+    tl->ids.append(idp, idl);
+    tl->id_off.push_back((int64_t)tl->ids.size());
+    p = next;
+  }
+  return tl;
+}
+
+int64_t pancov_targets_n(void* h) {
+  return (int64_t)((TargetsLoad*)h)->tid.size();
+}
+
+int64_t pancov_targets_ids_len(void* h) {
+  return (int64_t)((TargetsLoad*)h)->ids.size();
+}
+
+int64_t pancov_targets_max_id_len(void* h) {
+  auto* tl = (TargetsLoad*)h;
+  int64_t w = 0;
+  for (size_t i = 0; i + 1 < tl->id_off.size(); i++) {
+    int64_t l = tl->id_off[i + 1] - tl->id_off[i];
+    if (l > w) w = l;
+  }
+  return w;
+}
+
+// zero-padded fixed-width id rows (numpy 'S<w>' layout)
+void pancov_targets_fill_ids_fixed(void* h, int64_t w, char* out) {
+  auto* tl = (TargetsLoad*)h;
+  int64_t n = (int64_t)tl->tid.size();
+  std::memset(out, 0, (size_t)(n * w));
+  for (int64_t i = 0; i < n; i++) {
+    int64_t l = tl->id_off[i + 1] - tl->id_off[i];
+    if (l > w) l = w;
+    std::memcpy(out + i * w, tl->ids.data() + tl->id_off[i],
+                (size_t)l);
+  }
+}
+
+void pancov_targets_fill(void* h, int64_t* tid, int64_t* start,
+                         int64_t* end, int64_t* id_off, char* ids) {
+  auto* tl = (TargetsLoad*)h;
+  std::memcpy(tid, tl->tid.data(), tl->tid.size() * sizeof(int64_t));
+  std::memcpy(start, tl->start.data(),
+              tl->start.size() * sizeof(int64_t));
+  std::memcpy(end, tl->end.data(), tl->end.size() * sizeof(int64_t));
+  std::memcpy(id_off, tl->id_off.data(),
+              tl->id_off.size() * sizeof(int64_t));
+  std::memcpy(ids, tl->ids.data(), tl->ids.size());
+}
+
+void pancov_targets_close(void* h) { delete (TargetsLoad*)h; }
+
+}  // extern "C"
+
+extern "C" {
+
+// ---------------------------------------------------------------------
+// CRAM helpers: batch ITF8 decoding and rANS 4x8 decompression (the
+// Python implementations in io/cram.py and io/rans4x8.py are the
+// reference; these are drop-in accelerations used when available).
+
+// decode up to max_out ITF8 varints from buf; returns count decoded,
+// sets *bytes_used; tok_off (optional) receives each token's starting
+// byte offset
+int64_t pancov_itf8_decode_all(const uint8_t* buf, int64_t n,
+                               int64_t max_out, int32_t* out,
+                               int64_t* tok_off, int64_t* bytes_used) {
+  int64_t p = 0, k = 0;
+  while (p < n && k < max_out) {
+    if (tok_off) tok_off[k] = p;
+    uint8_t b0 = buf[p];
+    uint32_t v;
+    if (b0 < 0x80) {
+      v = b0;
+      p += 1;
+    } else if (b0 < 0xC0) {
+      if (p + 2 > n) break;
+      v = ((uint32_t)(b0 & 0x3F) << 8) | buf[p + 1];
+      p += 2;
+    } else if (b0 < 0xE0) {
+      if (p + 3 > n) break;
+      v = ((uint32_t)(b0 & 0x1F) << 16) | ((uint32_t)buf[p + 1] << 8) |
+          buf[p + 2];
+      p += 3;
+    } else if (b0 < 0xF0) {
+      if (p + 4 > n) break;
+      v = ((uint32_t)(b0 & 0x0F) << 24) | ((uint32_t)buf[p + 1] << 16) |
+          ((uint32_t)buf[p + 2] << 8) | buf[p + 3];
+      p += 4;
+    } else {
+      if (p + 5 > n) break;
+      v = ((uint32_t)(b0 & 0x0F) << 28) | ((uint32_t)buf[p + 1] << 20) |
+          ((uint32_t)buf[p + 2] << 12) | ((uint32_t)buf[p + 3] << 4) |
+          (buf[p + 4] & 0x0F);
+      p += 5;
+    }
+    out[k++] = (int32_t)v;
+  }
+  *bytes_used = p;
+  return k;
+}
+
+namespace {
+
+constexpr uint32_t kRansTot = 1 << 12;
+constexpr uint32_t kRansL = 1 << 23;
+
+struct RansTable {
+  uint16_t freq[256];
+  uint32_t cum[256];
+  uint8_t ssym[kRansTot];
+};
+
+// order-0-style RLE symbol table (CRAM spec §13)
+bool read_rans_table(const uint8_t* buf, int64_t n, int64_t& p,
+                     RansTable& t) {
+  std::memset(t.freq, 0, sizeof(t.freq));
+  if (p >= n) return false;
+  int rle = 0;
+  int j = buf[p++];
+  for (;;) {
+    if (p >= n) return false;
+    uint32_t f = buf[p++];
+    if (f >= 128) {
+      if (p >= n) return false;
+      f = ((f & 127) << 8) | buf[p++];
+    }
+    t.freq[j] = (uint16_t)f;
+    if (rle > 0) {
+      rle--;
+      j++;
+    } else {
+      if (p >= n) return false;
+      int nj = buf[p++];
+      if (nj == j + 1) {
+        if (p >= n) return false;
+        rle = buf[p++];
+      }
+      j = nj;
+    }
+    if (j == 0) break;
+  }
+  uint32_t x = 0;
+  for (int s = 0; s < 256; s++) {
+    t.cum[s] = x;
+    for (uint32_t m = 0; m < t.freq[s]; m++) t.ssym[x + m] = (uint8_t)s;
+    x += t.freq[s];
+  }
+  return x <= kRansTot;
+}
+
+inline void rans_renorm(uint32_t& x, const uint8_t* buf, int64_t n,
+                        int64_t& p) {
+  while (x < kRansL && p < n) x = (x << 8) | buf[p++];
+}
+
+}  // namespace
+
+// returns 0 on success
+int pancov_rans_decode(const uint8_t* buf, int64_t n, uint8_t* out,
+                       int64_t out_sz) {
+  if (n < 9) return -1;
+  int order = buf[0];
+  int64_t p = 9;
+  if (out_sz == 0) return 0;
+  if (order == 0) {
+    RansTable t;
+    if (!read_rans_table(buf, n, p, t)) return -2;
+    if (p + 16 > n) return -3;
+    uint32_t R[4];
+    for (int j = 0; j < 4; j++) {
+      R[j] = (uint32_t)buf[p] | ((uint32_t)buf[p + 1] << 8) |
+             ((uint32_t)buf[p + 2] << 16) | ((uint32_t)buf[p + 3] << 24);
+      p += 4;
+    }
+    for (int64_t i = 0; i < out_sz; i++) {
+      int j = i & 3;
+      uint32_t m = R[j] & (kRansTot - 1);
+      uint8_t s = t.ssym[m];
+      out[i] = s;
+      R[j] = t.freq[s] * (R[j] >> 12) + m - t.cum[s];
+      rans_renorm(R[j], buf, n, p);
+    }
+    return 0;
+  }
+  if (order == 1) {
+    static thread_local std::vector<RansTable> tables;
+    tables.assign(256, RansTable());
+    std::vector<uint8_t> have(256, 0);
+    if (p >= n) return -2;
+    int rle = 0;
+    int i = buf[p++];
+    for (;;) {
+      if (!read_rans_table(buf, n, p, tables[i])) return -2;
+      have[i] = 1;
+      if (rle > 0) {
+        rle--;
+        i++;
+      } else {
+        if (p >= n) return -2;
+        int ni = buf[p++];
+        if (ni == i + 1) {
+          if (p >= n) return -2;
+          rle = buf[p++];
+        }
+        i = ni;
+      }
+      if (i == 0) break;
+    }
+    if (p + 16 > n) return -3;
+    uint32_t R[4];
+    for (int j = 0; j < 4; j++) {
+      R[j] = (uint32_t)buf[p] | ((uint32_t)buf[p + 1] << 8) |
+             ((uint32_t)buf[p + 2] << 16) | ((uint32_t)buf[p + 3] << 24);
+      p += 4;
+    }
+    int64_t isz4 = out_sz >> 2;
+    int64_t segs[4] = {0, isz4, 2 * isz4, 3 * isz4};
+    uint8_t ctx[4] = {0, 0, 0, 0};
+    auto step = [&](int j, int64_t posn) {
+      RansTable& t = tables[ctx[j]];
+      uint32_t m = R[j] & (kRansTot - 1);
+      uint8_t s = t.ssym[m];
+      out[posn] = s;
+      R[j] = t.freq[s] * (R[j] >> 12) + m - t.cum[s];
+      rans_renorm(R[j], buf, n, p);
+      ctx[j] = s;
+    };
+    for (int64_t i2 = 0; i2 < isz4; i2++)
+      for (int j = 0; j < 4; j++) step(j, segs[j] + i2);
+    for (int64_t posn = 4 * isz4; posn < out_sz; posn++) step(3, posn);
+    return 0;
+  }
+  return -4;
+}
+
+// ---------------------------------------------------------------------
+// Fast .SiteDepth.gz writing: "chr\tpos\tdepth" per base. The Python
+// loop formats ~1M rows/s; this streams tens of millions/s through a
+// gzip member per call (appended members stay zcat-compatible, which
+// is how BGZF itself works).
+
+static void put_u32(std::string& s, uint32_t v) {
+  char buf[12];
+  int i = 12;
+  do {
+    buf[--i] = '0' + (v % 10);
+    v /= 10;
+  } while (v);
+  s.append(buf + i, 12 - i);
+}
+
+static void put_u64(std::string& s, uint64_t v) {
+  char buf[24];
+  int i = 24;
+  do {
+    buf[--i] = (char)('0' + (v % 10));
+    v /= 10;
+  } while (v);
+  s.append(buf + i, 24 - i);
+}
+
+// Fixed-2-decimal print of a nonnegative double, byte-identical to
+// snprintf("%.2f") (which the stat tables used verbatim and which
+// matches the reference's iostream fixed<<setprecision(2)). glibc's
+// %.2f is correctly rounded on the double's EXACT binary value with
+// ties to even; the fast path here rounds cents = x*100 with integer
+// math and falls back to snprintf inside a band around the .5
+// boundary, where either the one extra rounding of the multiply
+// (ulp(x*100)/2 ~ 1.1e-16 * x*100) or an exact decimal tie could
+// flip the digit. The tie band is only a sound catch-all while
+// ulp(x*100)/2 < 1e-6, i.e. cents below ~1e9 — so the magnitude
+// guard delegates everything >= 1e9 cents (mean depth ~1e7+, far
+// beyond the 18-bit depth cap) to snprintf outright rather than
+// trusting the band (advisor r4). Replaces ~3 snprintf calls per row
+// in the genome-scale writers (30M rows at -w 100 on 3 Gb:
+// formatting was the wall).
+static inline void put_fixed2(std::string& s, double x) {
+  double sc = x * 100.0;
+  double fl = std::floor(sc);
+  double fr = sc - fl;
+  if (!(sc >= 0.0) || sc >= 1.0e9 || std::fabs(fr - 0.5) < 1e-6) {
+    char tmp[64];
+    std::snprintf(tmp, sizeof tmp, "%.2f", x);
+    s.append(tmp);
+    return;
+  }
+  uint64_t cents = (uint64_t)fl + (fr > 0.5 ? 1u : 0u);
+  put_u64(s, cents / 100);
+  s.push_back('.');
+  unsigned c = (unsigned)(cents % 100);
+  s.push_back((char)('0' + c / 10));
+  s.push_back((char)('0' + c % 10));
+}
+
+// Sink that frames table/site output as complete gzip members. With
+// libdeflate each ~4 MB text block is compressed whole as one member
+// (~3x the zlib stream's throughput at the same level — compression
+// is the wall on genome-scale dumps); without it, a zlib stream at
+// level 1. Members concatenate losslessly (zcat reads them as one
+// stream), the framing the member-pool writers and BGZF itself use.
+struct GzMemberSink {
+  static constexpr size_t kMember = 4 << 20;  // text bytes per member
+  FILE* f = nullptr;
+  gzFile gz = nullptr;
+  std::string buf;
+  bool wrote_member = false;
+  int open(const char* path, int append) {
+#ifdef USE_LIBDEFLATE
+    f = std::fopen(path, append ? "ab" : "wb");
+    if (!f) return -1;
+#else
+    gz = gzopen(path, append ? "ab1" : "wb1");
+    if (!gz) return -1;
+#endif
+    buf.reserve(kMember + 512);
+    return 0;
+  }
+  int flush() {
+    if (buf.empty()) return 0;
+#ifdef USE_LIBDEFLATE
+    thread_local libdeflate_compressor* comp = nullptr;
+    if (!comp) comp = libdeflate_alloc_compressor(1);
+    if (!comp) return -4;
+    size_t bound = libdeflate_gzip_compress_bound(comp, buf.size());
+    thread_local std::vector<char> out;
+    if (out.size() < bound) out.resize(bound);
+    size_t got = libdeflate_gzip_compress(comp, buf.data(), buf.size(),
+                                          out.data(), out.size());
+    if (!got) return -4;
+    if (std::fwrite(out.data(), 1, got, f) != got) return -2;
+#else
+    if (gzwrite(gz, buf.data(), (unsigned)buf.size()) <= 0) return -2;
+#endif
+    wrote_member = true;
+    buf.clear();
+    return 0;
+  }
+  int maybe_flush(size_t slack) {
+    return buf.size() + slack >= kMember ? flush() : 0;
+  }
+  // always closes the handle; the first nonzero rc wins
+  int close(int rc_in, int append) {
+    int rc = rc_in ? rc_in : flush();
+#ifdef USE_LIBDEFLATE
+    if (!rc && !wrote_member && !append) {
+      // a zero-row fresh file still needs one (empty) gzip member to
+      // be a valid .gz: header(10) + empty fixed block + crc + isize
+      static const unsigned char kEmpty[20] = {
+          0x1f, 0x8b, 8, 0, 0, 0, 0, 0, 0, 3,
+          0x03, 0x00, 0, 0, 0, 0, 0, 0, 0, 0};
+      if (std::fwrite(kEmpty, 1, sizeof kEmpty, f) != sizeof kEmpty)
+        rc = -2;
+    }
+    if (f && std::fclose(f) != 0 && !rc) rc = -3;
+    f = nullptr;
+#else
+    if (gz && gzclose(gz) != Z_OK && !rc) rc = -3;
+    gz = nullptr;
+#endif
+    return rc;
+  }
+};
+
+// windowed stat rows: "chr\tstart\tend\tlen\tcov\tdsum[\tgc%]\tcov%\tmean"
+// (win-mode writer format, src/PanDepth.cpp:4333, :5008-5046); appends
+// one gzip member per call
+int pancov_win_rows_write(const char* path, int append,
+                          const char* chr_name, const int64_t* start1,
+                          const int64_t* end1, const int64_t* length,
+                          const int64_t* cov, const int64_t* dsum,
+                          const int64_t* gc, int64_t n, int has_gc) {
+  GzMemberSink sink;
+  if (sink.open(path, append)) return -1;
+  std::string& buf = sink.buf;
+  size_t name_len = std::strlen(chr_name);
+  char tmp[64];
+  int rc = 0;
+  for (int64_t i = 0; i < n; i++) {
+    buf.append(chr_name, name_len);
+    buf.push_back('\t');
+    put_u32(buf, (uint32_t)start1[i]);
+    buf.push_back('\t');
+    put_u32(buf, (uint32_t)end1[i]);
+    buf.push_back('\t');
+    put_u32(buf, (uint32_t)length[i]);
+    buf.push_back('\t');
+    put_u32(buf, (uint32_t)cov[i]);
+    buf.push_back('\t');
+    put_u64(buf, (uint64_t)dsum[i]);
+    double L = (double)length[i];
+    if (has_gc) {
+      buf.push_back('\t');
+      put_fixed2(buf, (double)gc[i] * 100.0 / L);
+    }
+    buf.push_back('\t');
+    put_fixed2(buf, (double)cov[i] * 100.0 / L);
+    buf.push_back('\t');
+    put_fixed2(buf, (double)dsum[i] / L);
+    buf.push_back('\n');
+    if ((rc = sink.maybe_flush(256))) break;
+  }
+  (void)tmp;
+  return sink.close(rc, append);
+}
+
+// gene/bed stat rows with the region-ID column:
+// "chr\tstart\tend\tid\tlen\tcov\tdsum[\tgc%]\tcov%\tmean"
+// (src/PanDepth.cpp:4891-4924 row shape); rows arrive pre-sorted in
+// output order; ids are a concatenated blob sliced by id_offs[n+1]
+int pancov_id_rows_write(const char* path, int append,
+                         const char* chr_name, const int64_t* start1,
+                         const int64_t* end1, const uint8_t* ids_blob,
+                         const int64_t* id_offs, const int64_t* length,
+                         const int64_t* cov, const int64_t* dsum,
+                         const int64_t* gc, int64_t n, int has_gc) {
+  GzMemberSink sink;
+  if (sink.open(path, append)) return -1;
+  std::string& buf = sink.buf;
+  size_t name_len = std::strlen(chr_name);
+  char tmp[64];
+  int rc = 0;
+  for (int64_t i = 0; i < n; i++) {
+    buf.append(chr_name, name_len);
+    buf.push_back('\t');
+    put_u32(buf, (uint32_t)start1[i]);
+    buf.push_back('\t');
+    put_u32(buf, (uint32_t)end1[i]);
+    buf.push_back('\t');
+    buf.append((const char*)ids_blob + id_offs[i],
+               (size_t)(id_offs[i + 1] - id_offs[i]));
+    buf.push_back('\t');
+    put_u32(buf, (uint32_t)length[i]);
+    buf.push_back('\t');
+    put_u32(buf, (uint32_t)cov[i]);
+    buf.push_back('\t');
+    put_u64(buf, (uint64_t)dsum[i]);
+    double L = (double)length[i];
+    if (has_gc) {
+      buf.push_back('\t');
+      put_fixed2(buf, (double)gc[i] * 100.0 / L);
+    }
+    buf.push_back('\t');
+    put_fixed2(buf, (double)cov[i] * 100.0 / L);
+    buf.push_back('\t');
+    put_fixed2(buf, (double)dsum[i] / L);
+    buf.push_back('\n');
+    if ((rc = sink.maybe_flush(512))) break;
+  }
+  (void)tmp;
+  return sink.close(rc, append);
+}
+
+// appends gzip members containing rows for [pos0, pos0+n) to path
+int pancov_site_depth_write(const char* path, const char* chr_name,
+                            int64_t pos0, const int32_t* depth,
+                            int64_t n, int append) {
+  GzMemberSink sink;
+  if (sink.open(path, append)) return -1;
+  std::string& buf = sink.buf;
+  size_t name_len = std::strlen(chr_name);
+  // incremental decimal counter for the ascending position column —
+  // far cheaper than re-dividing a fresh integer for each of the
+  // ~3e9 rows of a genome-scale -a dump
+  char pd[16];
+  int pn = 0;
+  {
+    uint64_t p = (uint64_t)pos0;
+    char t[20];
+    int k = 0;
+    do {
+      t[k++] = (char)('0' + p % 10);
+      p /= 10;
+    } while (p);
+    for (int j = 0; j < k; j++) pd[j] = t[k - 1 - j];
+    pn = k;
+  }
+  int rc = 0;
+  for (int64_t i = 0; i < n; i++) {
+    buf.append(chr_name, name_len);
+    buf.push_back('\t');
+    buf.append(pd, (size_t)pn);
+    buf.push_back('\t');
+    put_u32(buf, (uint32_t)depth[i]);
+    buf.push_back('\n');
+    int j = pn - 1;  // ++position in decimal
+    while (j >= 0 && pd[j] == '9') pd[j--] = '0';
+    if (j < 0) {
+      std::memmove(pd + 1, pd, (size_t)pn);
+      pd[0] = '1';
+      pn++;
+    } else {
+      pd[j]++;
+    }
+    if ((rc = sink.maybe_flush(64))) break;
+  }
+  return sink.close(rc, append);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// Streaming FASTA -> packed G/C indicator (the kseq + GC equivalent,
+// reference src/PanDepth.cpp:3513-3527 + :947-949). One pass over the
+// (possibly gzipped) file; per contig it emits a 1-bit-per-base G/C
+// bitmap (bitorder little) so a 3 Gb reference costs ~375 MB instead
+// of 3 GB resident (this host's VMM backs RSS fast only to ~4 GB).
+
+namespace {
+
+struct FastaGC {
+  std::vector<std::string> names;
+  std::vector<std::vector<uint8_t>> packed;
+  std::vector<int64_t> lens;
+};
+
+}  // namespace
+
+extern "C" {
+
+void* pancov_fasta_gc_load(const char* path, char* err, int err_len) {
+  // EXACT kseq.h record semantics (the reference's -r reader,
+  // include/kseq.h:94-224), validated differentially against a
+  // kseq-linked oracle and the Python iter_fasta twin: records start
+  // at any '>' or '@' byte; name = bytes until isspace(); '\n' is the
+  // ONLY line break (a mid-line '\r' is a length-occupying base); ONE
+  // trailing '\r' per line is dropped, and only while the cumulative
+  // sequence length exceeds 1; at EOF the trim additionally needs
+  // >= 2 bytes on the final line (kseq's manual first-char append is
+  // outside ks_getuntil2's trim). A line-initial '+' switches to
+  // FASTQ quality lines (same '\r' trim against the QUALITY length)
+  // until qual_len >= seq_len: equality commits the record, anything
+  // else -- or EOF inside the '+' line or the quality -- drops it and
+  // abandons the rest of the file (kseq_read's -2 return stops the
+  // reference's read loop, src/PanDepth.cpp:3513).
+  gzFile gz = gzopen(path, "rb");
+  if (!gz) {
+    if (err && err_len > 0)
+      std::snprintf(err, err_len, "cannot open fasta: %s", path);
+    return nullptr;
+  }
+  gzbuffer(gz, 1 << 20);
+  auto* fg = new FastaGC();
+  std::vector<uint8_t> buf(1 << 22);
+  static const std::vector<uint8_t> tab = [] {
+    std::vector<uint8_t> t(256, 0);
+    t['g'] = t['G'] = t['c'] = t['C'] = 1;
+    return t;
+  }();
+  auto is_space = [](uint8_t c) {
+    return c == ' ' || c == '\t' || c == '\n' || c == '\v' ||
+           c == '\f' || c == '\r';
+  };
+  enum State { JUNK, NAME, COMMENT, SEQ, PLUS, QUAL, DONE };
+  State st = JUNK;
+  std::string name;
+  bool name_byte_seen = false;   // ">"+EOF yields no record
+  std::vector<uint8_t> bits;
+  int64_t n = 0;                 // bases packed so far (cur included)
+  uint8_t cur = 0;
+  int64_t line_len = 0;          // seq/qual bytes on the current line
+  uint8_t last_ch = 0;           // last seq/qual byte on that line
+  int64_t qual_len = 0;
+  bool at_bol = true;
+
+  auto append_base = [&](uint8_t c) {
+    cur |= (uint8_t)(tab[c] << (n & 7));
+    n++;
+    if (!(n & 7)) {
+      bits.push_back(cur);
+      cur = 0;
+    }
+  };
+  auto pop_base = [&]() {        // drop the most recent base
+    n--;
+    if ((n & 7) == 7) {
+      cur = bits.back();
+      bits.pop_back();
+    }
+    cur &= (uint8_t)((1u << (n & 7)) - 1);
+  };
+  auto commit = [&]() {
+    if (n & 7) bits.push_back(cur);
+    fg->names.push_back(name);
+    fg->packed.push_back(std::move(bits));
+    fg->lens.push_back(n);
+    bits.clear();
+    n = 0;
+    cur = 0;
+  };
+  auto begin_record = [&]() {
+    name.clear();
+    name_byte_seen = false;
+    bits.clear();
+    n = 0;
+    cur = 0;
+    line_len = 0;
+    st = NAME;
+  };
+
+  for (;;) {
+    int got = gzread(gz, buf.data(), (unsigned)buf.size());
+    if (got < 0) {
+      gzclose(gz);
+      delete fg;
+      if (err && err_len > 0)
+        std::snprintf(err, err_len, "fasta read error: %s", path);
+      return nullptr;
+    }
+    if (got == 0) break;
+    int i = 0;
+    while (i < got && st != DONE) {
+      uint8_t c = buf[i];
+      switch (st) {
+        case JUNK: {
+          const uint8_t* p = buf.data() + i;
+          const uint8_t* gt =
+              (const uint8_t*)std::memchr(p, '>', got - i);
+          const uint8_t* at =
+              (const uint8_t*)std::memchr(p, '@', got - i);
+          const uint8_t* m =
+              gt && at ? (gt < at ? gt : at) : (gt ? gt : at);
+          if (!m) {
+            i = got;
+            break;
+          }
+          i = (int)(m - buf.data()) + 1;
+          begin_record();
+          break;
+        }
+        case NAME:
+          name_byte_seen = true;
+          if (is_space(c)) {
+            if (c == '\n') {
+              st = SEQ;
+              at_bol = true;
+              line_len = 0;
+            } else {
+              st = COMMENT;
+            }
+          } else {
+            name.push_back((char)c);
+          }
+          i++;
+          break;
+        case COMMENT: {
+          const void* nl = std::memchr(buf.data() + i, '\n', got - i);
+          if (!nl) {
+            i = got;
+            break;
+          }
+          i = (int)((const uint8_t*)nl - buf.data()) + 1;
+          st = SEQ;
+          at_bol = true;
+          line_len = 0;
+          break;
+        }
+        case SEQ: {
+          if (at_bol) {
+            if (c == '\n') {       // empty line: skipped
+              i++;
+              break;
+            }
+            if (c == '>' || c == '@') {
+              commit();
+              i++;
+              begin_record();
+              break;
+            }
+            if (c == '+') {
+              i++;
+              st = PLUS;
+              break;
+            }
+            at_bol = false;        // c is a base; fall into the run
+          }
+          const void* nlp = std::memchr(buf.data() + i, '\n', got - i);
+          int end = nlp ? (int)((const uint8_t*)nlp - buf.data()) : got;
+          if (end > i) last_ch = buf[end - 1];
+          line_len += end - i;
+          while ((n & 7) && i < end) append_base(buf[i++]);
+#if defined(__AVX2__)
+          // SIMD G/C test + movemask packs 32 bases into 4 bitmap
+          // bytes per iteration (the 1-bit-per-base layout IS the
+          // movemask layout). Uppercasing via & 0xDF maps exactly
+          // {G,g}->0x47 and {C,c}->0x43 with no aliases, so the
+          // equality test matches the scalar table bit-for-bit.
+          if (end - i >= 32) {
+            const __m256i df = _mm256_set1_epi8((char)0xDF);
+            const __m256i gg = _mm256_set1_epi8('G');
+            const __m256i cc = _mm256_set1_epi8('C');
+            size_t base = bits.size();
+            bits.resize(base + (size_t)((end - i) / 32) * 4);
+            uint8_t* out = bits.data() + base;
+            while (end - i >= 32) {
+              __m256i v = _mm256_loadu_si256(
+                  (const __m256i*)(buf.data() + i));
+              __m256i up = _mm256_and_si256(v, df);
+              __m256i m = _mm256_or_si256(
+                  _mm256_cmpeq_epi8(up, gg),
+                  _mm256_cmpeq_epi8(up, cc));
+              uint32_t bits32 = (uint32_t)_mm256_movemask_epi8(m);
+              std::memcpy(out, &bits32, 4);
+              out += 4;
+              n += 32;
+              i += 32;
+            }
+          }
+#endif
+          while (end - i >= 8) {   // bulk: 8 bases -> 1 packed byte
+            const uint8_t* p = buf.data() + i;
+            bits.push_back((uint8_t)(
+                tab[p[0]] | (tab[p[1]] << 1) | (tab[p[2]] << 2) |
+                (tab[p[3]] << 3) | (tab[p[4]] << 4) | (tab[p[5]] << 5) |
+                (tab[p[6]] << 6) | (tab[p[7]] << 7)));
+            n += 8;
+            i += 8;
+          }
+          while (i < end) append_base(buf[i++]);
+          if (nlp) {
+            if (line_len > 0 && last_ch == '\r' && n > 1) pop_base();
+            i++;                   // consume the '\n'
+            at_bol = true;
+            line_len = 0;
+          }
+          break;
+        }
+        case PLUS: {
+          const void* nl = std::memchr(buf.data() + i, '\n', got - i);
+          if (!nl) {
+            i = got;
+            break;
+          }
+          i = (int)((const uint8_t*)nl - buf.data()) + 1;
+          st = QUAL;
+          qual_len = 0;
+          line_len = 0;
+          break;
+        }
+        case QUAL: {
+          const void* nlp = std::memchr(buf.data() + i, '\n', got - i);
+          int end = nlp ? (int)((const uint8_t*)nlp - buf.data()) : got;
+          if (end > i) last_ch = buf[end - 1];
+          line_len += end - i;
+          qual_len += end - i;
+          i = end;
+          if (nlp) {
+            if (line_len > 0 && last_ch == '\r' && qual_len > 1)
+              qual_len--;
+            i++;
+            if (qual_len >= n) {
+              if (qual_len == n) {
+                commit();
+                st = JUNK;
+              } else {
+                st = DONE;         // kseq -2: drop record, stop file
+              }
+            }
+            line_len = 0;
+          }
+          break;
+        }
+        case DONE:
+          i = got;
+          break;
+      }
+    }
+    if (st == DONE) break;
+  }
+  // EOF finalization (kseq_read's end-of-stream behavior per state)
+  switch (st) {
+    case NAME:
+      if (name_byte_seen) commit();
+      break;
+    case COMMENT:
+      commit();
+      break;
+    case SEQ:
+      if (line_len >= 2 && last_ch == '\r' && n > 1) pop_base();
+      commit();
+      break;
+    case QUAL:
+      if (line_len > 0 && last_ch == '\r' && qual_len > 1) qual_len--;
+      if (qual_len == n) commit();
+      break;
+    default:
+      break;  // JUNK; PLUS (EOF inside '+' line drops); DONE
+  }
+  gzclose(gz);
+  return fg;
+}
+
+int64_t pancov_fasta_gc_count(void* h) {
+  return (int64_t)((FastaGC*)h)->names.size();
+}
+
+int64_t pancov_fasta_gc_len(void* h, int64_t i) {
+  return ((FastaGC*)h)->lens[i];
+}
+
+int pancov_fasta_gc_name(void* h, int64_t i, char* out, int out_len) {
+  const std::string& s = ((FastaGC*)h)->names[i];
+  if ((int)s.size() + 1 > out_len) return -1;
+  std::memcpy(out, s.data(), s.size());
+  out[s.size()] = 0;
+  return (int)s.size();
+}
+
+int64_t pancov_fasta_gc_packed_size(void* h, int64_t i) {
+  return (int64_t)((FastaGC*)h)->packed[i].size();
+}
+
+void pancov_fasta_gc_copy(void* h, int64_t i, uint8_t* out) {
+  auto& v = ((FastaGC*)h)->packed[i];
+  std::memcpy(out, v.data(), v.size());
+}
+
+void pancov_fasta_gc_free(void* h) { delete (FastaGC*)h; }
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// Host event-sweep finalize: sort + depth sweep + boundary eval on the
+// host CPU (the C++ twin of device/sweep.py sort_events + eval_pair).
+//
+// Why it exists: it is the finalize of the jax-free host engine — the
+// path for machines without an accelerator, and an implementation
+// independent of device/sweep.py that the device engines are checked
+// against (parallel radix sort + single sweep). Semantics mirror the
+// device sweep exactly: depth piecewise-constant between sorted
+// events, CoveredSite / TotalDepth integrate pieces with
+// depth >= min_dep (reference src/PanDepth.cpp:319-324), Q(x) =
+// integral over [0, x), segment = Q(hi) - Q(lo); wrap18 masks the
+// running depth to 18 bits (DataClass.h:84-87, quirk Q1).
+
+namespace {
+
+struct HostEv {
+  uint32_t pos;
+  int32_t delta;
+};
+
+void run_tp(int T, const std::function<void(int)>& fn) {
+  std::vector<std::thread> ts;
+  for (int t = 1; t < T; t++) ts.emplace_back(fn, t);
+  fn(0);
+  for (auto& t : ts) t.join();
+}
+
+// Per-region LSD finisher for the hybrid radix: the fused gather
+// already scattered events into 65536 contiguous high-16-bit regions
+// (~n/65536 events each, cache-resident at any realistic size); each
+// region finishes with a local 2x8-bit LSD through a small scratch —
+// the classic 2x16 LSD\'s full-array random-write passes never happen
+// (measured: 2.57 s 2x16-LSD -> 1.84 s MSD+LSD -> this fused form
+// also drops the 1.3 GB ping-pong buffer at 160M events). Regions
+// ride an atomic cursor (sizes skew when positions cluster).
+void regions_lsd(HostEv* ev, const std::vector<int64_t>& region,
+                 int nthreads) {
+  constexpr int R = 1 << 16;
+  std::atomic<int> next(0);
+  run_tp(std::max(nthreads, 1), [&](int) {
+    std::vector<HostEv> scratch;
+    int64_t h8[2][256];
+    for (;;) {
+      int b = next.fetch_add(1);
+      if (b >= R) break;
+      int64_t lo = region[b], m = region[b + 1] - lo;
+      if (m <= 1) continue;
+      HostEv* d = ev + lo;
+      std::memset(h8, 0, sizeof(h8));
+      for (int64_t i = 0; i < m; i++) {
+        h8[0][d[i].pos & 0xFF]++;
+        h8[1][(d[i].pos >> 8) & 0xFF]++;
+      }
+      int64_t s0 = 0, s1 = 0;
+      for (int v = 0; v < 256; v++) {
+        int64_t c0 = h8[0][v], c1 = h8[1][v];
+        h8[0][v] = s0;
+        h8[1][v] = s1;
+        s0 += c0;
+        s1 += c1;
+      }
+      scratch.resize((size_t)m);
+      for (int64_t i = 0; i < m; i++)
+        scratch[(size_t)h8[0][d[i].pos & 0xFF]++] = d[i];
+      for (int64_t i = 0; i < m; i++)
+        d[h8[1][(scratch[(size_t)i].pos >> 8) & 0xFF]++] =
+            scratch[(size_t)i];
+    }
+  });
+}
+
+}  // namespace
+
+extern "C" {
+
+// Events arrive as the engine's staged chunks: n_chunks pairs of
+// equal-length (starts, ends) arrays (u32 global positions,
+// sentinel-slot padded; a start is delta +1, an end −1) plus one
+// optional pre-built (pos, delta) chunk for generic feeds. Boundaries
+// qlo/qhi are int64 clamped global positions. Writes per-segment
+// cover/dsum; with keep_state != 0 also writes the sorted breakpoint
+// state (pos int64 + running depth int32, the dense_from_state /
+// _host_sweep input) into out_pos/out_depth (caller allocates the
+// 2*sum(pair_n)+n_extra upper bound) and returns its length.
+// Returns the (non-negative) state length, or -1 on bad arguments.
+int64_t pancov_host_finalize(
+    int n_chunks, const uint32_t** starts_v, const uint32_t** ends_v,
+    const int64_t* pair_n, uint32_t sentinel,
+    const uint32_t* xpos, const int32_t* xdelta, int64_t n_extra,
+    const int64_t* qlo, const int64_t* qhi, int64_t nq,
+    int32_t min_dep, int wrap18,
+    int64_t* out_cover, int64_t* out_dsum,
+    int keep_state, int64_t* out_pos, int32_t* out_depth,
+    int nthreads) {
+  if (n_chunks < 0 || nq < 0 || n_extra < 0) return -1;
+  if (nthreads < 1) nthreads = 1;
+
+  const bool fin_dbg = std::getenv("PANCOV_FIN_DEBUG") != nullptr;
+  auto tick = std::chrono::steady_clock::now();
+  auto lap = [&](const char* what) {
+    if (!fin_dbg) return;
+    auto now = std::chrono::steady_clock::now();
+    std::fprintf(stderr, "[fin] %s %.3fs\n", what,
+                 std::chrono::duration<double>(now - tick).count());
+    tick = now;
+  };
+
+  // Fused gather + MSD scatter: one histogram pass over the staged
+  // chunks (live events only, high 16 bits of the position), then one
+  // scatter straight into the 65536 contiguous regions of `ev` — the
+  // events array is written exactly once, already MSD-partitioned,
+  // and no separate gather buffer or radix ping-pong ever exists
+  // (first-touch page faults on GB-scale buffers cost more than the
+  // sort itself on this host). Chunks are grouped into <= 16 balanced
+  // work units so the per-unit histograms stay small.
+  constexpr int R = 1 << 16;
+  int64_t total_pairs = 0;
+  for (int c = 0; c < n_chunks; c++) total_pairs += pair_n[c];
+  const int G = (int)std::min<int64_t>(16, std::max(n_chunks, 1));
+  // unit u covers chunks [cut[u], cut[u+1]) balanced by pairs
+  std::vector<int> cut(G + 1, n_chunks);
+  cut[0] = 0;
+  {
+    int64_t acc = 0, goal = 0;
+    int u = 1;
+    for (int c = 0; c < n_chunks && u < G; c++) {
+      acc += pair_n[c];
+      goal = total_pairs * u / G;
+      if (acc >= goal) cut[u++] = c + 1;
+    }
+    for (; u < G; u++) cut[u] = n_chunks;
+  }
+  const int NU = G + 1;  // extras ride as the last pseudo-unit
+  std::vector<int64_t> hist((size_t)NU * R, 0);
+  std::atomic<int> next1(0);
+  run_tp(std::min(nthreads, NU), [&](int) {
+    for (;;) {
+      int u = next1.fetch_add(1);
+      if (u >= NU) break;
+      int64_t* h = &hist[(size_t)u * R];
+      if (u == G) {
+        for (int64_t i = 0; i < n_extra; i++)
+          if (xpos[i] != sentinel) h[xpos[i] >> 16]++;
+      } else {
+        for (int c = cut[u]; c < cut[u + 1]; c++)
+          for (int64_t i = 0; i < pair_n[c]; i++) {
+            if (starts_v[c][i] != sentinel) h[starts_v[c][i] >> 16]++;
+            if (ends_v[c][i] != sentinel) h[ends_v[c][i] >> 16]++;
+          }
+      }
+    }
+  });
+  std::vector<int64_t> region(R + 1);
+  int64_t n_ev = 0;  // bucket-major, unit-minor exclusive scan
+  for (int b = 0; b < R; b++) {
+    region[b] = n_ev;
+    for (int u = 0; u < NU; u++) {
+      int64_t v = hist[(size_t)u * R + b];
+      hist[(size_t)u * R + b] = n_ev;
+      n_ev += v;
+    }
+  }
+  region[R] = n_ev;
+  // the event buffer rides raw mmap, NOT the heap: the host process
+  // pins M_TRIM/M_MMAP at 1 GB (boot.disable_thp's freelist tuning),
+  // and with the streaming producer allocating concurrently the heap
+  // fragments — a ~200 MB fold-finalize buffer then lands at a NEW
+  // heap top every fold (measured: +250 MB RSS per fold at 80M
+  // reads). munmap on scope exit returns the pages unconditionally.
+  struct EvBuf {
+    HostEv* p = nullptr;
+    size_t bytes = 0;
+    bool alloc(size_t cnt) {
+      if (!cnt) return true;
+      bytes = cnt * sizeof(HostEv);
+      void* m = mmap(nullptr, bytes, PROT_READ | PROT_WRITE,
+                     MAP_PRIVATE | MAP_ANONYMOUS, -1, 0);
+      if (m == MAP_FAILED) {
+        p = nullptr;
+        return false;
+      }
+      p = (HostEv*)m;
+      return true;
+    }
+    ~EvBuf() {
+      if (p) munmap(p, bytes);
+    }
+  } evb;
+  if (!evb.alloc((size_t)n_ev)) return -1;
+  HostEv* const ev = evb.p;
+  std::atomic<int> next2(0);
+  run_tp(std::min(nthreads, NU), [&](int) {
+    for (;;) {
+      int u = next2.fetch_add(1);
+      if (u >= NU) break;
+      int64_t* h = &hist[(size_t)u * R];
+      if (u == G) {
+        for (int64_t i = 0; i < n_extra; i++) {
+          uint32_t p = xpos[i];
+          if (p != sentinel) ev[(size_t)h[p >> 16]++] = {p, xdelta[i]};
+        }
+      } else {
+        for (int c = cut[u]; c < cut[u + 1]; c++)
+          for (int64_t i = 0; i < pair_n[c]; i++) {
+            uint32_t p = starts_v[c][i];
+            if (p != sentinel) ev[(size_t)h[p >> 16]++] = {p, 1};
+            uint32_t q = ends_v[c][i];
+            if (q != sentinel) ev[(size_t)h[q >> 16]++] = {q, -1};
+          }
+      }
+    }
+  });
+  lap("gather+msd");
+
+  regions_lsd(ev, region, nthreads);
+  lap("regions_lsd");
+
+  // boundaries sorted by value (stable order irrelevant: Q(x) only
+  // depends on x)
+  std::vector<std::pair<int64_t, int64_t>> qb((size_t)2 * nq);
+  for (int64_t j = 0; j < nq; j++) {
+    qb[j] = {qlo[j], j};
+    qb[nq + j] = {qhi[j], nq + j};
+  }
+  std::sort(qb.begin(), qb.end());
+
+  std::vector<int64_t> q_cov((size_t)2 * nq), q_sum((size_t)2 * nq);
+  int64_t depth = 0, acc_cov = 0, acc_sum = 0;
+  int64_t prev = 0;
+  size_t ie = 0;
+  const int64_t mask = wrap18 ? 0x3FFFF : -1;  // -1 = all bits
+  for (auto& [x, j] : qb) {
+    while (ie < (size_t)n_ev && (int64_t)ev[ie].pos < x) {
+      int64_t d_eff = depth & mask;
+      if (d_eff >= min_dep) {
+        int64_t len = (int64_t)ev[ie].pos - prev;
+        acc_cov += len;
+        acc_sum += len * d_eff;
+      }
+      depth += ev[ie].delta;
+      prev = (int64_t)ev[ie].pos;
+      ie++;
+    }
+    int64_t d_eff = depth & mask;
+    int64_t part = (d_eff >= min_dep) ? (x - prev) : 0;
+    q_cov[(size_t)j] = acc_cov + part;
+    q_sum[(size_t)j] = acc_sum + part * d_eff;
+  }
+  for (int64_t j = 0; j < nq; j++) {
+    out_cover[j] = q_cov[(size_t)(nq + j)] - q_cov[(size_t)j];
+    out_dsum[j] = q_sum[(size_t)(nq + j)] - q_sum[(size_t)j];
+  }
+  lap("sweep+eval");
+
+  if (!keep_state) return 0;
+  int64_t d2 = 0;
+  for (size_t i = 0; i < (size_t)n_ev; i++) {
+    d2 += ev[i].delta;
+    out_pos[i] = (int64_t)ev[i].pos;
+    out_depth[i] = (int32_t)(d2 & mask);
+  }
+  return n_ev;
+}
+
+}  // extern "C"

@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from pandepth_tpu.io.bam_writer import cigar_str_to_ops, ref_span, write_bam
+from pandepth_jax.io.bam_writer import cigar_str_to_ops, ref_span, write_bam
 
 CONTIGS = [("chr1", 5000), ("chr2", 3200), ("ctgM", 700)]
 

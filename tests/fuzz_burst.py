@@ -30,19 +30,13 @@ def _init_worker():
     os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ.setdefault("PANDEPTH_ENC_CAP", str(1 << 14))
     os.environ.setdefault("PANDEPTH_ENC_EXC", str(1 << 11))
-    os.environ.setdefault(
-        "PANDEPTH_JAX_CACHE",
-        os.path.expanduser("~/.cache/pandepth_jax_cpu"))
     flags = os.environ.get("XLA_FLAGS", "")
     if "xla_force_host_platform_device_count" not in flags:
         os.environ["XLA_FLAGS"] = (
             flags + " --xla_force_host_platform_device_count=8").strip()
-    from pandepth_tpu.boot import disable_thp
+    from pandepth_jax.boot import disable_thp
 
     disable_thp()
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", 8)
 
 
@@ -50,7 +44,7 @@ ORACLE = "/tmp/refbin/pandepth"
 
 
 def _run_multi(tmp: str, seed: int) -> str:
-    from pandepth_tpu.cli import main as cli_main
+    from pandepth_jax.cli import main as cli_main
     from tests.test_fuzz_parity import _gen_multi_case, gunzip_bytes
 
     inp, args = _gen_multi_case(tmp, seed)

@@ -6,7 +6,7 @@
  * samtools depth >= 1.10 (/root/reference/README.md:147), but this
  * image ships no samtools and has no egress. This tool closes that
  * loop with counting machinery that shares NOTHING with PanDepth's
- * CIGAR loops (src/PanDepth.cpp:436-460) or with pandepth_tpu's event
+ * CIGAR loops (src/PanDepth.cpp:436-460) or with pandepth_jax's event
  * sweeps: htslib's own pileup engine (bam_plp) derives per-position
  * read stacks, and depth is simply the count of non-deletion,
  * non-refskip entries — exactly samtools depth's counting rule

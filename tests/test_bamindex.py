@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from pandepth_tpu.io.bamindex import (BamIndex, chunks_for_windows,
+from pandepth_jax.io.bamindex import (BamIndex, chunks_for_windows,
                                       load_index_for, merge_ranges)
 
 from tests.fixtures import CONTIGS, make_bam
@@ -34,10 +34,10 @@ def test_merge_ranges():
 def test_ranged_load_equals_full(tmp_path):
     import pytest
 
-    native = pytest.importorskip("pandepth_tpu.io.native")
+    native = pytest.importorskip("pandepth_jax.io.native")
     if native.load_library() is None:
         pytest.skip("native unavailable")
-    from pandepth_tpu.device.layout import GenomeLayout
+    from pandepth_jax.device.layout import GenomeLayout
 
     bam = str(tmp_path / "t.bam")
     make_bam(bam, n=800, seed=31)
@@ -71,7 +71,7 @@ def test_bulk_bin_chunks_equals_per_bin(tmp_path):
     bin, every contig), including mixed lazy/materialized entries."""
     from tests.fixtures import make_bam
 
-    from pandepth_tpu.io.bamindex import load_index_for
+    from pandepth_jax.io.bamindex import load_index_for
 
     bam = str(tmp_path / "b.bam")
     make_bam(bam, n=3000, seed=5)

@@ -2,9 +2,9 @@
 
 import os
 
-from pandepth_tpu.cli import parse_args
-from pandepth_tpu.config import MODE_BED3, MODE_BED4, MODE_GFF
-from pandepth_tpu.stats.tables import output_prefix
+from pandepth_jax.cli import parse_args
+from pandepth_jax.config import MODE_BED3, MODE_BED4, MODE_GFF
+from pandepth_jax.stats.tables import output_prefix
 
 
 def test_basic_flags(tmp_path):

@@ -7,15 +7,15 @@ import subprocess
 import numpy as np
 import pytest
 
-from pandepth_tpu.io.bam_writer import cigar_str_to_ops
-from pandepth_tpu.io.cram import CramReader
-from pandepth_tpu.io.cram_writer import write_cram
-from pandepth_tpu.io.rans4x8 import rans_decode, rans_encode
+from pandepth_jax.io.bam_writer import cigar_str_to_ops
+from pandepth_jax.io.cram import CramReader
+from pandepth_jax.io.cram_writer import write_cram
+from pandepth_jax.io.rans4x8 import rans_decode, rans_encode
 
 from tests.fixtures import CONTIGS, gunzip_bytes, make_fasta, make_gff, \
     random_reads
 
-from pandepth_tpu.cli import main as cli_main
+from pandepth_jax.cli import main as cli_main
 
 
 @pytest.mark.parametrize("order", [0, 1])
@@ -102,8 +102,8 @@ def test_vectorized_events_match_record_loop(tmp_path):
     the record-loop batches."""
     import numpy as np
 
-    from pandepth_tpu.device.engine import CoverageEngine
-    from pandepth_tpu.device.layout import GenomeLayout
+    from pandepth_jax.device.engine import CoverageEngine
+    from pandepth_jax.device.layout import GenomeLayout
 
     recs = _cram_recs(n=600, seed=77)
     path = str(tmp_path / "v.cram")
@@ -189,10 +189,10 @@ def test_crai_block_skipping(tmp_path, oracle_bin):
             os.path.basename(rf)
 
     # sparseness: the run must decode only a fraction of containers
-    from pandepth_tpu.io.cram import (CramReader, crai_select_offsets,
+    from pandepth_jax.io.cram import (CramReader, crai_select_offsets,
                                       load_crai)
-    from pandepth_tpu.targets.model import TargetSet
-    from pandepth_tpu.targets.parse import parse_targets
+    from pandepth_jax.targets.model import TargetSet
+    from pandepth_jax.targets.parse import parse_targets
 
     targets = parse_targets(bed, 3, {"big": 0})
     regs = (*targets.fetch_windows(np.asarray(lengths, np.int64)), 1)
@@ -211,7 +211,7 @@ def test_crai_block_skipping(tmp_path, oracle_bin):
 def test_crai_offsets_equals_full_decode(tmp_path):
     """Offset-restricted decode + read-span window filter == full
     decode + same filter, for every window pattern."""
-    from pandepth_tpu.io.cram import (CramReader, crai_select_offsets,
+    from pandepth_jax.io.cram import (CramReader, crai_select_offsets,
                                       load_crai)
 
     recs = _cram_recs(n=800, seed=9)
@@ -235,7 +235,7 @@ def test_crai_offsets_equals_full_decode(tmp_path):
         for (tid, flag, mapq, s0, e0, _n, rlo,
              rhi) in r.interval_batches(offsets=offsets):
             keep = (flag & 1796) == 0
-            from pandepth_tpu.run import _intervals_in_windows
+            from pandepth_jax.run import _intervals_in_windows
 
             keep &= _intervals_in_windows(tid, rlo, rhi, regs)
             out.append((tid[keep], s0[keep], e0[keep]))
@@ -298,9 +298,9 @@ def test_htslib_written_cram_decodes(tmp_path):
     the BAM it came from."""
     from tests.fixtures import make_bam
 
-    from pandepth_tpu.device.engine import CoverageEngine
-    from pandepth_tpu.device.layout import GenomeLayout
-    from pandepth_tpu.io.bam import BamReader
+    from pandepth_jax.device.engine import CoverageEngine
+    from pandepth_jax.device.layout import GenomeLayout
+    from pandepth_jax.io.bam import BamReader
 
     bam = str(tmp_path / "h.bam")
     make_bam(bam, n=900, seed=43)

@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from pandepth_tpu.io.bam_writer import write_uniform_bam
-from pandepth_tpu.io.bamindex import load_index_for
+from pandepth_jax.io.bam_writer import write_uniform_bam
+from pandepth_jax.io.bamindex import load_index_for
 
 
 def _big_bam(tmp, n=30_000, clen=700_000_000, seed=5):
@@ -29,10 +29,10 @@ def test_csi_written_and_parsed(tmp_path):
     assert idx is not None and idx.min_shift == 14 and idx.depth == 6
     # query a deep region: chunks must exist and the ranged load must
     # agree with the full walk
-    native = pytest.importorskip("pandepth_tpu.io.native")
+    native = pytest.importorskip("pandepth_jax.io.native")
     if native.load_library() is None:
         pytest.skip("native unavailable")
-    from pandepth_tpu.io.bamindex import chunks_for_windows
+    from pandepth_jax.io.bamindex import chunks_for_windows
 
     lo, hi = 600_000_000, 600_500_000
     windows = (np.array([0, 1], np.int64), np.array([lo], np.int64),
@@ -59,7 +59,7 @@ def test_reference_accepts_csi(tmp_path, oracle_bin):
 
     from tests.fixtures import gunzip_bytes
 
-    from pandepth_tpu.cli import main as cli_main
+    from pandepth_jax.cli import main as cli_main
 
     tmp = str(tmp_path)
     bam, pos = _big_bam(tmp, n=5000)

@@ -7,15 +7,15 @@ fallback."""
 import numpy as np
 import pytest
 
-from pandepth_tpu.device.engine import (CoverageEngine,
+from pandepth_jax.device.engine import (CoverageEngine,
                                         decode_enc_host)
-from pandepth_tpu.device.layout import GenomeLayout
-from pandepth_tpu.io.bam import read_bam_header
-from pandepth_tpu.io.bam_writer import write_bam
+from pandepth_jax.device.layout import GenomeLayout
+from pandepth_jax.io.bam import read_bam_header
+from pandepth_jax.io.bam_writer import write_bam
 
 
 def _native_stream(path, **kw):
-    from pandepth_tpu.io import native
+    from pandepth_jax.io import native
 
     if native.load_library() is None:
         pytest.skip(f"native build failed: {native.build_error()}")
@@ -290,7 +290,7 @@ def test_feed_stream_upgrades_to_u16_on_sparse(tmp_path):
     first escape-saturated window — not grind through hundreds of
     short u8 windows. Regression: the tier check compared bound
     methods with `is` (always False), so the upgrade never fired."""
-    from pandepth_tpu.run import _feed_stream
+    from pandepth_jax.run import _feed_stream
 
     bam = str(tmp_path / "s.bam")
     # gaps ~400 : zigzag ~800 > 254, so nearly every u8 delta escapes
@@ -379,7 +379,7 @@ def test_engine_const_length_u16_and_mixed_seam(tmp_path):
     eng1 = CoverageEngine(lay)
     eng1.add_start_end(rs, re_)
 
-    from pandepth_tpu.run import _feed_stream
+    from pandepth_jax.run import _feed_stream
 
     eng2 = CoverageEngine(lay)
     eng2.enc_cap, eng2.enc_exc = 512, 64
@@ -423,13 +423,12 @@ def test_engine_const_spill(tmp_path):
 
 
 def test_backend_aware_enc_default(tmp_path, monkeypatch):
-    """With PANDEPTH_ENC unset the engine picks the feed path by
-    backend: raw staging on CPU (no link to compress for; the padded
-    code blocks make the XLA-CPU sort mostly sentinels — measured 2x
-    end-to-end on the 3 Gb bench), encoded windows elsewhere. The
-    full stream feed through the default-raw path must match the
-    encoded path bit for bit."""
-    from pandepth_tpu.run import _feed_stream
+    """With PANDEPTH_ENC unset the engine stages raw positions
+    (hosteval.wants_encoded_windows; the padded code blocks cost more
+    than they save on the CPU backend and on the H100). The full
+    stream feed through the default-raw path must match the encoded
+    path bit for bit."""
+    from pandepth_jax.run import _feed_stream
 
     monkeypatch.delenv("PANDEPTH_ENC", raising=False)
     bam = str(tmp_path / "d.bam")
@@ -438,7 +437,7 @@ def test_backend_aware_enc_default(tmp_path, monkeypatch):
     lay = GenomeLayout(hdr.lengths)
 
     eng = CoverageEngine(lay)
-    assert eng._is_cpu_backend and not eng.wants_encoded_windows
+    assert eng._platform == "cpu" and not eng.wants_encoded_windows
     r = _native_stream(bam)
     _feed_stream(eng, r)
     assert not eng._has_enc          # the raw take32 path was used

@@ -19,8 +19,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from pandepth_tpu.cli import main as cli_main
-from pandepth_tpu.io.fasta import PackedGC, iter_fasta, iter_fasta_gc
+from pandepth_jax.cli import main as cli_main
+from pandepth_jax.io.fasta import PackedGC, iter_fasta, iter_fasta_gc
 from tests.fixtures import gunzip_bytes, make_bam
 
 NASTY = [
@@ -77,7 +77,7 @@ def test_iter_fasta_kseq_corpus(tmp_path):
 
 
 def test_native_matches_python_scanner(tmp_path):
-    from pandepth_tpu.io.native import load_library
+    from pandepth_jax.io.native import load_library
 
     if load_library() is None:
         pytest.skip("native library unavailable")

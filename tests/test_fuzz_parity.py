@@ -14,8 +14,8 @@ import pytest
 
 from tests.fixtures import drop_gc_column, gunzip_bytes, make_fasta
 
-from pandepth_tpu.cli import main as cli_main
-from pandepth_tpu.io.bam_writer import write_bam
+from pandepth_jax.cli import main as cli_main
+from pandepth_jax.io.bam_writer import write_bam
 
 
 def _gen_case(tmp: str, seed: int, fmt: str = "bam"):
@@ -63,7 +63,7 @@ def _gen_case(tmp: str, seed: int, fmt: str = "bam"):
         mapq = rng.choice([0, 1, 5, 20, 40, 60, 254])
         # stay below +100 overhang (multi-file heap bug) for safety
         if cigar != "*":
-            from pandepth_tpu.io.bam_writer import cigar_str_to_ops, \
+            from pandepth_jax.io.bam_writer import cigar_str_to_ops, \
                 ref_span
             if pos + ref_span(cigar_str_to_ops(cigar)) > clen + 90:
                 continue
@@ -101,7 +101,7 @@ def _gen_case(tmp: str, seed: int, fmt: str = "bam"):
             with open(bam, "wb") as fh:
                 fh.write(data)
     elif fmt.startswith("cram"):
-        from pandepth_tpu.io.cram_writer import write_cram
+        from pandepth_jax.io.cram_writer import write_cram
 
         bam = os.path.join(tmp, f"f{seed}.cram")
         write_cram(bam, names, lengths, recs,
@@ -277,7 +277,7 @@ def _gen_multi_case(tmp: str, seed: int):
             clen = contigs[tid][1]
             pos = r2.randrange(0, max(clen - 60, 1))
             ln = r2.randint(1, 60)
-            from pandepth_tpu.io.bam_writer import cigar_str_to_ops, \
+            from pandepth_jax.io.bam_writer import cigar_str_to_ops, \
                 ref_span
             cigar = f"{ln}M" if r2.random() < 0.7 else \
                 f"{ln}M{r2.randint(1, 9)}D{r2.randint(1, 30)}M"
@@ -291,7 +291,7 @@ def _gen_multi_case(tmp: str, seed: int):
 
     args = []
     if kind == "cram":
-        from pandepth_tpu.io.cram_writer import write_cram
+        from pandepth_jax.io.cram_writer import write_cram
 
         path = os.path.join(tmp, f"m{seed}.cram")
         write_cram(path, names, lengths, rand_recs(seed * 7 + 1))

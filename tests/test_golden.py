@@ -12,7 +12,7 @@ import pytest
 from tests.fixtures import (gunzip_bytes, make_bam, make_bed, make_fasta,
                             make_gff)
 
-from pandepth_tpu.cli import main as cli_main
+from pandepth_jax.cli import main as cli_main
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from pandepth_tpu.device.engine import CoverageEngine
-from pandepth_tpu.device.layout import GenomeLayout
-from pandepth_tpu.device.sweep import WRAP18_MASK
-from pandepth_tpu.io.bam import ReadBatch
-from pandepth_tpu.io.bam_writer import cigar_str_to_ops
+from pandepth_jax.device.engine import CoverageEngine
+from pandepth_jax.device.layout import GenomeLayout
+from pandepth_jax.device.sweep import SEARCH_METHOD, WRAP18_MASK
+from pandepth_jax.io.bam import ReadBatch
+from pandepth_jax.io.bam_writer import cigar_str_to_ops
 
 from tests.fixtures import CONTIGS, naive_depth, random_reads
 
@@ -122,7 +122,7 @@ def test_window_stats_host_matches_generic(min_dep, wrap18, win):
     """The O(E+W) piece-scatter window eval must match the generic
     boundary eval on the mode-6 regular tiling: random reads, clipped
     final windows, dropped 1-base windows, min_dep>1, 18-bit wrap."""
-    from pandepth_tpu.targets.windows import small_window_tiling
+    from pandepth_jax.targets.windows import small_window_tiling
 
     rng = np.random.RandomState(win * 7 + min_dep)
     # len % win == 1 on contig 1 -> dropped final 1-base window;
@@ -166,7 +166,7 @@ def test_window_stats_host_grid_tail_past_slack():
     (K*w - L up to w-1); the over-count correction must clamp its
     integral to the contig limit or it subtracts the next contig's
     coverage (regression: cover went negative)."""
-    from pandepth_tpu.targets.windows import small_window_tiling
+    from pandepth_jax.targets.windows import small_window_tiling
 
     win = 1000
     lengths = np.array([1400, 5000], np.int64)  # K*w - L = 600 > 512
@@ -206,7 +206,7 @@ def test_window_stats_host_empty_piece_classes():
     """np.bincount returns int64 for EMPTY weights arrays; a batch
     with no single-window pieces (or none at all) must not poison the
     float64 accumulators (found by fuzzing, seed 10149)."""
-    from pandepth_tpu.targets.windows import small_window_tiling
+    from pandepth_jax.targets.windows import small_window_tiling
 
     layout = GenomeLayout(np.array([1000], np.int64))
     eng = CoverageEngine(layout, wrap18=True)
@@ -227,7 +227,7 @@ def test_window_stats_host_empty_piece_classes():
 def test_window_stats_host_int64_genome():
     """>4 Gb layouts run the int64 position tier; the host window eval
     must stay exact there (global coords overflow int32/uint32)."""
-    from pandepth_tpu.targets.windows import small_window_tiling
+    from pandepth_jax.targets.windows import small_window_tiling
 
     lengths = np.array([3_000_000_000, 2_000_000_000], np.int64)
     layout = GenomeLayout(lengths)
@@ -252,3 +252,89 @@ def test_window_stats_host_int64_genome():
     np.testing.assert_array_equal(fast.cover, ref.cover)
     np.testing.assert_array_equal(fast.depth_sum, ref.depth_sum)
     assert fast.cover.sum() == 1_200
+
+
+@pytest.mark.parametrize("n", [1, 256, 4096, 4097, 65_536, 168_000,
+                               1 << 20])
+def test_search_method(n):
+    """The default search method is the binary search the H100 and the
+    CPU timings chose at every batch size, and eval_pair and
+    eval_boundaries both take it: answers equal the explicit method's
+    at query counts on both sides of the old 4,096 threshold."""
+    import jax.numpy as jnp
+
+    from pandepth_jax.device.sweep import (eval_boundaries, eval_pair,
+                                           sort_events)
+
+    assert SEARCH_METHOD == "scan_unrolled"
+    rng = np.random.RandomState(n % 1000)
+    s = rng.randint(0, 500_000, 2000)
+    pos = np.concatenate([s, s + rng.randint(1, 400, 2000)])
+    delta = np.concatenate([np.ones(2000, np.int32),
+                            -np.ones(2000, np.int32)])
+    st = sort_events(jnp.asarray(pos, jnp.int64), jnp.asarray(delta))
+    lo = jnp.asarray(np.sort(rng.randint(0, 500_000, n)), jnp.int64)
+    hi = lo + 1_000
+    md = jnp.int32(1)
+    got = eval_pair(*st[:4], md, lo, hi)
+    want = eval_pair(*st[:4], md, lo, hi, method="scan_unrolled")
+    ref = eval_pair(*st[:4], md, lo, hi, method="sort")
+    for a, b, c in zip(got, want, ref):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(c))
+    qc, qs = eval_boundaries(*st[:4], md, hi)
+    pc, ps = eval_boundaries(*st[:4], md, lo)
+    np.testing.assert_array_equal(np.asarray(qc - pc), np.asarray(got[0]))
+    np.testing.assert_array_equal(np.asarray(qs - ps), np.asarray(got[1]))
+
+
+@pytest.mark.parametrize("method", ["scan", "scan_unrolled", "sort",
+                                    "compare_all", None])
+@pytest.mark.parametrize("dtype", [np.int32, np.uint32, np.int64])
+def test_eval_pair_methods_match_hosteval(method, dtype):
+    """Every searchsorted method gives eval_pair the exact answers of
+    the numpy twins (derive_integrals + host_q_eval), on each
+    coordinate tier."""
+    import jax.numpy as jnp
+
+    from pandepth_jax.device import hosteval as he
+    from pandepth_jax.device.sweep import eval_pair, sort_events
+
+    rng = np.random.RandomState(3)
+    base = 3_000_000_000 if dtype is np.uint32 else \
+        5_000_000_000 if dtype is np.int64 else 0
+    s = base + rng.randint(0, 200_000, 3000)
+    e = s + rng.randint(1, 300, 3000)
+    pos = np.concatenate([s, e]).astype(dtype)
+    delta = np.concatenate([np.ones(3000, np.int32),
+                            -np.ones(3000, np.int32)])
+    st = sort_events(jnp.asarray(pos), jnp.asarray(delta), min_dep=2)
+    order = np.argsort(pos, kind="stable")
+    hpos = pos[order].astype(np.int64)
+    sweep = he.derive_integrals(
+        hpos, np.cumsum(delta[order]).astype(np.int32), 2)
+    lo = np.sort(base + rng.randint(0, 200_000, 700)).astype(dtype)
+    hi = (lo + rng.randint(0, 5_000, 700)).astype(dtype)
+    got = eval_pair(st[0], st[1], st[2], st[3], jnp.int32(2),
+                    jnp.asarray(lo), jnp.asarray(hi),
+                    **({} if method is None else {"method": method}))
+    q = [he.host_q_eval(sweep, 2, x.astype(np.int64),
+                        np.searchsorted(hpos, x.astype(np.int64)))
+         for x in (lo, hi)]
+    np.testing.assert_array_equal(np.asarray(got[0]), q[1][0] - q[0][0])
+    np.testing.assert_array_equal(np.asarray(got[1]), q[1][1] - q[0][1])
+
+
+@pytest.mark.parametrize("env,want", [
+    (None, False), ("0", False), ("1", True),
+])
+def test_feed_format_policy(monkeypatch, env, want):
+    """Raw positions by default (faster on the H100 and the CPU);
+    the encoded windows only when asked for."""
+    from pandepth_jax.device.hosteval import wants_encoded_windows
+
+    if env is None:
+        monkeypatch.delenv("PANDEPTH_ENC", raising=False)
+    else:
+        monkeypatch.setenv("PANDEPTH_ENC", env)
+    assert wants_encoded_windows() is want

@@ -16,9 +16,9 @@ import pytest
 
 from tests.fixtures import gunzip_bytes
 
-from pandepth_tpu.cli import main as cli_main
-from pandepth_tpu.io.bam import BamReader
-from pandepth_tpu.io.bam_writer import write_bam
+from pandepth_jax.cli import main as cli_main
+from pandepth_jax.io.bam import BamReader
+from pandepth_jax.io.bam_writer import write_bam
 
 CONTIGS = [("chr1", 200_000), ("chr2", 100_000)]
 
@@ -84,7 +84,7 @@ def test_python_decoder_resolves_cg(tmp_path):
 
 
 def test_native_decoder_matches_python(tmp_path):
-    native = pytest.importorskip("pandepth_tpu.io.native")
+    native = pytest.importorskip("pandepth_jax.io.native")
     if native.load_library() is None:
         pytest.skip(f"native build failed: {native.build_error()}")
     bam = str(tmp_path / "t.bam")

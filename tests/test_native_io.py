@@ -4,14 +4,14 @@ headers and columnar batches on every fixture."""
 import numpy as np
 import pytest
 
-from pandepth_tpu.io.bam import BamReader
+from pandepth_jax.io.bam import BamReader
 
 from tests.fixtures import make_bam
 
 
 @pytest.fixture(scope="module")
 def native():
-    native_mod = pytest.importorskip("pandepth_tpu.io.native")
+    native_mod = pytest.importorskip("pandepth_jax.io.native")
     if native_mod.load_library() is None:
         pytest.skip(f"native build failed: {native_mod.build_error()}")
     return native_mod
@@ -36,8 +36,8 @@ def test_native_matches_python(tmp_path, native):
 
 
 def test_native_events_match_device_extraction(tmp_path, native):
-    from pandepth_tpu.device.engine import CoverageEngine
-    from pandepth_tpu.device.layout import GenomeLayout
+    from pandepth_jax.device.engine import CoverageEngine
+    from pandepth_jax.device.layout import GenomeLayout
     from tests.fixtures import CONTIGS
 
     bam = str(tmp_path / "t.bam")
@@ -67,7 +67,7 @@ def test_native_events_match_device_extraction(tmp_path, native):
 def test_native_load_pipeline_matches(tmp_path, native):
     """The one-shot pipelined load must produce the same events as the
     two-phase reader path."""
-    from pandepth_tpu.device.layout import GenomeLayout
+    from pandepth_jax.device.layout import GenomeLayout
     from tests.fixtures import CONTIGS
 
     bam = str(tmp_path / "t.bam")

@@ -7,13 +7,13 @@ import os
 import numpy as np
 import pytest
 
-from pandepth_tpu.config import (MODE_BED3, MODE_BED4, MODE_GFF,
+from pandepth_jax.config import (MODE_BED3, MODE_BED4, MODE_GFF,
                                  MODE_GTF)
-from pandepth_tpu.targets.parse import (_parse_bed3, _parse_bed4,
+from pandepth_jax.targets.parse import (_parse_bed3, _parse_bed4,
                                         _parse_gff, _parse_gtf,
                                         _try_native_targets,
                                         parse_targets)
-from pandepth_tpu.targets.model import GeneAccumulator
+from pandepth_jax.targets.model import GeneAccumulator
 
 pytestmark = pytest.mark.skipif(
     os.environ.get("PANDEPTH_NO_NATIVE") == "1",

@@ -7,8 +7,8 @@ import os
 import numpy as np
 import pytest
 
-from pandepth_tpu.stats.tables import write_tables
-from pandepth_tpu.targets.windows import synthesize_default_targets
+from pandepth_jax.stats.tables import write_tables
+from pandepth_jax.targets.windows import synthesize_default_targets
 
 
 def _gunzip(p):
@@ -17,7 +17,7 @@ def _gunzip(p):
 
 
 def test_win_big_native_matches_python(tmp_path, monkeypatch):
-    native = pytest.importorskip("pandepth_tpu.io.native")
+    native = pytest.importorskip("pandepth_jax.io.native")
     if native.load_library() is None:
         pytest.skip("native unavailable")
 
@@ -32,7 +32,7 @@ def test_win_big_native_matches_python(tmp_path, monkeypatch):
     write_tables(p_native, mode, False, ["cA", "cB"], t, cover, dsum)
 
     # force the Python formatter
-    import pandepth_tpu.io.native as nat
+    import pandepth_jax.io.native as nat
 
     monkeypatch.setattr(nat, "_lib", None)
     monkeypatch.setattr(nat, "_build_error", "forced off")
@@ -43,7 +43,7 @@ def test_win_big_native_matches_python(tmp_path, monkeypatch):
 
 
 def test_win_big_native_gc_matches(tmp_path, monkeypatch):
-    native = pytest.importorskip("pandepth_tpu.io.native")
+    native = pytest.importorskip("pandepth_jax.io.native")
     if native.load_library() is None:
         pytest.skip("native unavailable")
 
@@ -59,7 +59,7 @@ def test_win_big_native_gc_matches(tmp_path, monkeypatch):
     p_native = str(tmp_path / "n.win.stat.gz")
     write_tables(p_native, mode, True, ["c"], t, cover, dsum)
 
-    import pandepth_tpu.io.native as nat
+    import pandepth_jax.io.native as nat
 
     monkeypatch.setattr(nat, "_lib", None)
     monkeypatch.setattr(nat, "_build_error", "forced off")
@@ -73,12 +73,12 @@ def test_id_rows_native_matches_python(tmp_path, monkeypatch):
     """Gene/bed ID tables >50k rows route through pancov_id_rows_write;
     bytes must match the Python row loop (incl. GC column and the
     (tid, start, id-bytes) row order with duplicate starts)."""
-    native = pytest.importorskip("pandepth_tpu.io.native")
+    native = pytest.importorskip("pandepth_jax.io.native")
     if native.load_library() is None:
         pytest.skip("native unavailable")
 
-    from pandepth_tpu.config import MODE_BED4
-    from pandepth_tpu.targets.model import TargetSet
+    from pandepth_jax.config import MODE_BED4
+    from pandepth_jax.targets.model import TargetSet
 
     n = 60_000
     rng = np.random.RandomState(3)
@@ -100,7 +100,7 @@ def test_id_rows_native_matches_python(tmp_path, monkeypatch):
         p_native = str(tmp_path / f"n{gc}.bed.stat.gz")
         write_tables(p_native, MODE_BED4, gc, ["cA", "cB", "cC"], t,
                      cover, dsum)
-        import pandepth_tpu.io.native as nat
+        import pandepth_jax.io.native as nat
 
         monkeypatch.setattr(nat, "_lib", None)
         monkeypatch.setattr(nat, "_build_error", "forced off")
@@ -117,7 +117,7 @@ def test_member_jobs_error_cleans_parts(tmp_path):
     covers in-flight ones)."""
     import glob
 
-    from pandepth_tpu.stats.tables import _run_member_jobs
+    from pandepth_jax.stats.tables import _run_member_jobs
 
     out = str(tmp_path / "t.gz")
     open(out, "wb").close()
@@ -156,7 +156,7 @@ def test_fixed2_formatter_adversarial(tmp_path):
     cov*100/L land EXACTLY on .005 ties (e.g. 1/32 -> 3.125 ->
     round-half-even '3.12'), the band the fast path must delegate to
     snprintf."""
-    native = pytest.importorskip("pandepth_tpu.io.native")
+    native = pytest.importorskip("pandepth_jax.io.native")
     lib = native.load_library()
     if lib is None:
         pytest.skip("native unavailable")
@@ -195,7 +195,7 @@ def test_site_depth_writer_members(tmp_path):
     incremental position counter must survive digit-count growth, a
     zero-row fresh file must still be a valid (empty) gzip, and
     multi-member output must read back as one stream."""
-    native = pytest.importorskip("pandepth_tpu.io.native")
+    native = pytest.importorskip("pandepth_jax.io.native")
     lib = native.load_library()
     if lib is None:
         pytest.skip("native unavailable")

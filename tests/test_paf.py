@@ -7,7 +7,7 @@ import subprocess
 
 from tests.fixtures import CONTIGS, gunzip_bytes, make_bed, make_fasta
 
-from pandepth_tpu.cli import main as cli_main
+from pandepth_jax.cli import main as cli_main
 
 
 def make_paf(path: str, contigs=CONTIGS, n: int = 500, seed: int = 13,
@@ -154,7 +154,7 @@ def test_paf_contig_table_native_matches_python(tmp_path, monkeypatch):
     """The native memchr contig scan must match the Python line scan
     exactly: first-seen order, <7-token lines skipped, CRLF stripped,
     duplicate names keep the first length, space-separated columns."""
-    from pandepth_tpu.io.paf import paf_contig_table
+    from pandepth_jax.io.paf import paf_contig_table
 
     p = str(tmp_path / "c.paf")
     with open(p, "wb") as fh:

@@ -12,7 +12,7 @@ import pytest
 from tests.fixtures import (CONTIGS, gunzip_bytes, make_bam, make_bed,
                             make_fasta, make_gff, make_gtf)
 
-from pandepth_tpu.cli import main as cli_main
+from pandepth_jax.cli import main as cli_main
 
 
 def run_ours(workdir, args):
@@ -153,7 +153,7 @@ def test_site_output_bed_no_index(tmp_path, oracle_bin):
 def test_site_output_bed_unsorted_no_index(tmp_path, oracle_bin):
     # unsorted + no index: the reference streams every read unfiltered
     from tests.fixtures import CONTIGS, random_reads
-    from pandepth_tpu.io.bam_writer import write_bam
+    from pandepth_jax.io.bam_writer import write_bam
 
     tmp = str(tmp_path)
     bam = os.path.join(tmp, "u.bam")
@@ -219,8 +219,8 @@ def test_gc_mode_small_windows_documented_divergence(tmp_path, oracle_bin):
 def test_multi_file_mixed_formats(tmp_path, oracle_bin):
     # one .list mixing BAM + SAM + CRAM (htslib sniffs per file)
     from tests.fixtures import CONTIGS, random_reads
-    from pandepth_tpu.io.bam_writer import cigar_str_to_ops
-    from pandepth_tpu.io.cram_writer import write_cram
+    from pandepth_jax.io.bam_writer import cigar_str_to_ops
+    from pandepth_jax.io.cram_writer import write_cram
 
     tmp = str(tmp_path)
     bam = os.path.join(tmp, "a.bam")

@@ -9,11 +9,11 @@ import os
 import numpy as np
 import pytest
 
-from pandepth_tpu.config import RunConfig
-from pandepth_tpu.device.engine import CoverageEngine
-from pandepth_tpu.device.layout import GenomeLayout
-from pandepth_tpu.io.bam import read_bam_header
-from pandepth_tpu.run import _EncPuller, _enc_caps, _feed_stream
+from pandepth_jax.config import RunConfig
+from pandepth_jax.device.engine import CoverageEngine
+from pandepth_jax.device.layout import GenomeLayout
+from pandepth_jax.io.bam import read_bam_header
+from pandepth_jax.run import _EncPuller, _enc_caps, _feed_stream
 
 from fixtures import CONTIGS, make_bam
 
@@ -23,7 +23,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def _native_stream(path):
-    from pandepth_tpu.io.native import NativeBamStream, load_library
+    from pandepth_jax.io.native import NativeBamStream, load_library
     if load_library() is None:
         pytest.skip("libpancov_io unavailable")
     return NativeBamStream(path, 1796, -1)
@@ -75,7 +75,7 @@ def test_stash_host_decode_into_sharded_engine(tmp_path, monkeypatch):
     events for both the stash and the remaining stream."""
     monkeypatch.setenv("PANDEPTH_ENC_CAP", "1024")
     monkeypatch.setenv("PANDEPTH_ENC_EXC", "128")
-    from pandepth_tpu.sharding.engine import ShardedCoverageEngine
+    from pandepth_jax.sharding.engine import ShardedCoverageEngine
 
     bam = str(tmp_path / "t.bam")
     make_bam(bam, n=2500, seed=32)
@@ -104,8 +104,8 @@ def test_cli_prepull_engages(tmp_path, monkeypatch):
     CLI stashes windows pre-engine and the table is unchanged."""
     import gzip
 
-    from pandepth_tpu import boot
-    from pandepth_tpu.cli import main as cli_main
+    from pandepth_jax import boot
+    from pandepth_jax.cli import main as cli_main
 
     bam = str(tmp_path / "t.bam")
     make_bam(bam, n=1500, seed=33)

@@ -13,13 +13,13 @@ byte-parity with the reference binary.
 import numpy as np
 import pytest
 
-from pandepth_tpu.io.bam import read_bam_header
-from pandepth_tpu.io.bam_writer import write_bam
-from pandepth_tpu.io.bamindex import chunks_for_windows, load_index_for
+from pandepth_jax.io.bam import read_bam_header
+from pandepth_jax.io.bam_writer import write_bam
+from pandepth_jax.io.bamindex import chunks_for_windows, load_index_for
 
 
 def _native(cls_name):
-    from pandepth_tpu.io import native
+    from pandepth_jax.io import native
 
     if native.load_library() is None:
         pytest.skip(f"native library unavailable: {native.build_error()}")
@@ -142,7 +142,7 @@ def test_cli_gene_mode_uses_ranged_stream_parity(tmp_path, oracle_bin):
 
     from tests.fixtures import make_bam, make_gff
 
-    from pandepth_tpu.cli import main as cli_main
+    from pandepth_jax.cli import main as cli_main
 
     ref = oracle_bin
     bam = str(tmp_path / "t.bam")

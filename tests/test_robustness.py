@@ -9,7 +9,7 @@ import pytest
 
 from tests.fixtures import make_bam
 
-from pandepth_tpu.cli import main as cli_main
+from pandepth_jax.cli import main as cli_main
 
 
 def _run(tmp, args):

@@ -6,8 +6,8 @@ import subprocess
 
 from tests.fixtures import CONTIGS, gunzip_bytes, random_reads
 
-from pandepth_tpu.cli import main as cli_main
-from pandepth_tpu.io.bam_writer import cigar_str_to_ops
+from pandepth_jax.cli import main as cli_main
+from pandepth_jax.io.bam_writer import cigar_str_to_ops
 
 
 def make_sam(path: str, contigs=CONTIGS, n=300, seed=17,

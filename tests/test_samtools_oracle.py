@@ -4,7 +4,7 @@ The reference's accuracy claim is "completely consistent with
 samtools depth (version >=1.10)" (/root/reference/README.md:147). The
 rest of the suite proves byte parity against the reference binary;
 this file closes the loop against an oracle whose counting machinery
-shares NOTHING with PanDepth's CIGAR loops or with pandepth_tpu's
+shares NOTHING with PanDepth's CIGAR loops or with pandepth_jax's
 event sweeps:
 
 - real ``samtools depth -aa`` whenever a samtools binary is available
@@ -16,7 +16,7 @@ event sweeps:
   zero-fill, flag mask, ``-Q`` mapq filter). This image ships no
   samtools and has no egress, so the htsdepth path is what actually
   executes here — the oracle tests run in the default suite instead
-  of perpetually skipping (VERDICT r4 #4).
+  of perpetually skipping.
 
 Comparison: our ``-a`` SiteDepth dump (0-based, all positions of every
 regioned contig — in chr mode that is every contig) against the
@@ -84,7 +84,7 @@ pytestmark = pytest.mark.skipif(
 
 
 def _our_sites(tmp_path, bam, extra=()):
-    from pandepth_tpu.cli import main as cli_main
+    from pandepth_jax.cli import main as cli_main
 
     prefix = str(tmp_path / "ours")
     rc = cli_main(["pandepth", "-i", bam, "-a", "-o", prefix]

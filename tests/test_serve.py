@@ -1,4 +1,4 @@
-"""Resident serve mode (pandepth_tpu/serve.py): a foreground server
+"""Resident serve mode (pandepth_jax/serve.py): a foreground server
 answers CLI runs shipped over the unix socket with byte-identical
 outputs, honors per-request cwd, survives bad requests, and refuses
 stale-code clients."""
@@ -23,13 +23,21 @@ def _serve_env(sock):
     env = dict(os.environ)
     env.update({
         "PANDEPTH_DAEMON_SOCK": sock,
-        "PANDEPTH_FORCE_PLATFORM": "cpu",
+        "JAX_PLATFORMS": "cpu",
         "PANDEPTH_DAEMON_IDLE_S": "120",
         # keep daemon-side runs cheap (same knobs as conftest)
         "PANDEPTH_ENC_CAP": str(1 << 14),
         "PANDEPTH_ENC_EXC": str(1 << 11),
     })
     return env
+
+
+def _direct_env(env):
+    """A direct run's env pointed at a socket no daemon listens on: a
+    direct run stops the daemon it finds on its socket (one jax
+    process per device)."""
+    return dict(env, PANDEPTH_DAEMON_SOCK=env["PANDEPTH_DAEMON_SOCK"]
+                + ".direct")
 
 
 def _wait_sock(path, timeout=60.0):
@@ -62,8 +70,10 @@ def served(tmp_path_factory):
                            env=env, stdout=subprocess.DEVNULL,
                            stderr=subprocess.DEVNULL)
     _wait_sock(sock)
-    yield {"dir": str(d), "bam": bam, "sock": sock, "env": env,
-           "srv": srv}
+    state = {"dir": str(d), "bam": bam, "sock": sock, "env": env,
+             "srv": srv}
+    yield state
+    srv = state["srv"]  # a test may have replaced the server
     if srv.poll() is None:
         subprocess.run([sys.executable, "-S", LAUNCHER,
                         "--daemon-stop"], env=env, timeout=60)
@@ -81,11 +91,11 @@ def test_serve_matches_direct(served, tmp_path):
         [sys.executable, "-c",
          "import sys; sys.path.insert(0, %r);"
          "import jax; jax.config.update('jax_platforms','cpu');"
-         "from pandepth_tpu.cli import main;"
+         "from pandepth_jax.cli import main;"
          "sys.exit(main(['pandepth','-i',%r,'-o','direct1']))"
          % (REPO, served["bam"])],
-        cwd=str(tmp_path), env=served["env"], capture_output=True,
-        timeout=300)
+        cwd=str(tmp_path), env=_direct_env(served["env"]),
+        capture_output=True, timeout=300)
     assert direct.returncode == 0, direct.stderr[-2000:]
     with gzip.open(os.path.join(d, "srv1.chr.stat.gz")) as fh:
         a = fh.read()
@@ -140,7 +150,7 @@ def test_run_one_env_replacement_and_errors(tmp_path, monkeypatch):
     the request must not leak into the run; (b) survive a dead cwd and
     a string SystemExit without killing the daemon; (c) restore env
     afterwards."""
-    from pandepth_tpu import serve as srv_mod
+    from pandepth_jax import serve as srv_mod
 
     s = srv_mod._Server(str(tmp_path / "x.sock"))
     monkeypatch.setenv("PANDEPTH_TEST_INHERITED", "1")
@@ -153,7 +163,7 @@ def test_run_one_env_replacement_and_errors(tmp_path, monkeypatch):
         seen["cwd"] = os.getcwd()
         return 0
 
-    monkeypatch.setattr("pandepth_tpu.cli.main", fake_main)
+    monkeypatch.setattr("pandepth_jax.cli.main", fake_main)
     fds = [os.open(os.devnull, os.O_RDONLY),
            os.open(os.devnull, os.O_WRONLY),
            os.open(os.devnull, os.O_WRONLY)]
@@ -179,10 +189,70 @@ def test_run_one_env_replacement_and_errors(tmp_path, monkeypatch):
     def exit_main(argv):
         raise SystemExit("boom")
 
-    monkeypatch.setattr("pandepth_tpu.cli.main", exit_main)
+    monkeypatch.setattr("pandepth_jax.cli.main", exit_main)
     fds = [os.open(os.devnull, os.O_RDONLY),
            os.open(os.devnull, os.O_WRONLY),
            os.open(os.devnull, os.O_WRONLY)]
     reply = s._run_one({"argv": [], "cwd": str(tmp_path), "env": {}},
                        fds)
     assert reply["rc"] == 1
+
+
+def test_direct_run_stops_resident_daemon(tmp_path):
+    """One JAX process per device: a direct (PANDEPTH_DAEMON=0) device
+    run stops this socket's resident daemon, and waits for its process
+    to exit, before it initializes jax; its tables are unaffected."""
+    bam = str(tmp_path / "t.bam")
+    make_bam(bam, n=200, seed=9)
+    sock = str(tmp_path / "d.sock")
+    env = _serve_env(sock)
+    srv = subprocess.Popen([sys.executable, "-S", LAUNCHER, "--serve"],
+                           env=env, stdout=subprocess.DEVNULL,
+                           stderr=subprocess.DEVNULL)
+    try:
+        _wait_sock(sock)
+        r = subprocess.run(
+            [sys.executable, "-S", LAUNCHER, "-i", bam, "-o",
+             str(tmp_path / "direct")],
+            env=dict(env, PANDEPTH_DAEMON="0"), capture_output=True,
+            text=True, timeout=300)
+        assert r.returncode == 0, r.stderr[-2000:]
+        assert f"stopped the resident pandepth daemon (pid {srv.pid})" \
+            in r.stderr
+        assert srv.wait(timeout=30) == 0   # already gone: no wait here
+        assert os.path.exists(str(tmp_path / "direct.chr.stat.gz"))
+        # nothing left to stop: a second direct run says nothing
+        r2 = subprocess.run(
+            [sys.executable, "-S", LAUNCHER, "-i", bam, "-o",
+             str(tmp_path / "direct2")],
+            env=dict(env, PANDEPTH_DAEMON="0"), capture_output=True,
+            text=True, timeout=300)
+        assert r2.returncode == 0, r2.stderr[-2000:]
+        assert "stopped" not in r2.stderr
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+
+
+@pytest.mark.parametrize("tmpdir_env", [True, False])
+def test_sock_path_default_follows_tmpdir(tmp_path, monkeypatch,
+                                          tmpdir_env):
+    """Without PANDEPTH_DAEMON_SOCK the socket lives in the temporary
+    directory (TMPDIR when set), keyed by uid: two checkouts run with
+    their own TMPDIR never stop each other's daemon. The variable,
+    when set, wins."""
+    import tempfile
+
+    from pandepth_jax import serve as srv_mod
+
+    monkeypatch.delenv("PANDEPTH_DAEMON_SOCK", raising=False)
+    if tmpdir_env:
+        monkeypatch.setenv("TMPDIR", str(tmp_path))
+    else:
+        monkeypatch.delenv("TMPDIR", raising=False)
+    monkeypatch.setattr(tempfile, "tempdir", None)  # re-read TMPDIR
+    want_dir = str(tmp_path) if tmpdir_env else tempfile.gettempdir()
+    assert srv_mod.sock_path() == os.path.join(
+        want_dir, f"pandepth-daemon-{os.getuid()}.sock")
+    monkeypatch.setenv("PANDEPTH_DAEMON_SOCK", str(tmp_path / "x.sock"))
+    assert srv_mod.sock_path() == str(tmp_path / "x.sock")

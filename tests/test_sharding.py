@@ -6,10 +6,10 @@ import jax
 import numpy as np
 import pytest
 
-from pandepth_tpu.device.engine import CoverageEngine
-from pandepth_tpu.device.layout import GenomeLayout
-from pandepth_tpu.io.bam import ReadBatch
-from pandepth_tpu.sharding.mesh import make_mesh, sharded_coverage_step
+from pandepth_jax.device.engine import CoverageEngine
+from pandepth_jax.device.layout import GenomeLayout
+from pandepth_jax.io.bam import ReadBatch
+from pandepth_jax.sharding.mesh import make_mesh, sharded_coverage_step
 
 import jax.numpy as jnp
 
@@ -123,11 +123,11 @@ def test_graft_dryrun():
 
 def test_cli_uses_sharded_engine_by_default(monkeypatch):
     """With >1 device the production CLI path must construct the
-    range-sharded engine (VERDICT r1: multi-chip must be the product's
-    execution model, not a test harness)."""
+    range-sharded engine (multi-device is the product's execution
+    model, not a test harness)."""
     monkeypatch.delenv("PANDEPTH_SHARDED", raising=False)
-    from pandepth_tpu.run import make_engine
-    from pandepth_tpu.sharding.engine import ShardedCoverageEngine
+    from pandepth_jax.run import make_engine
+    from pandepth_jax.sharding.engine import ShardedCoverageEngine
 
     eng = make_engine(GenomeLayout(np.array([1000], np.int64)))
     assert isinstance(eng, ShardedCoverageEngine)
@@ -144,7 +144,7 @@ def test_cli_sharded_vs_single_byte_parity(tmp_path, monkeypatch):
     import os
 
     from tests.fixtures import make_bam, make_gff
-    from pandepth_tpu.cli import main as cli_main
+    from pandepth_jax.cli import main as cli_main
 
     tmp = str(tmp_path)
     bam = os.path.join(tmp, "t.bam")
@@ -178,7 +178,7 @@ def test_multihost_engine_cached_state_eval():
     eval-only program — answers identical to the single-chip engine
     every time. (Single-process here: process_count()==1 over the 8
     virtual devices; the collective path is the same program.)"""
-    from pandepth_tpu.sharding.multihost import MultihostCoverageEngine
+    from pandepth_jax.sharding.multihost import MultihostCoverageEngine
 
     rng = np.random.RandomState(3)
     lengths = np.array([5000, 2600], np.int64)

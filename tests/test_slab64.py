@@ -2,8 +2,7 @@
 
 ``hosteval._finalize_events_slabbed`` keeps the native 32-bit radix
 kernel for wheat-scale pangenome layouts by partitioning events into
-2 Gb coordinate slabs and carry-chaining the integrals (VERDICT r4
-missing #2: the only >4 Gb path used to be the numpy argsort twin).
+2 Gb coordinate slabs and carry-chaining the integrals.
 Proven here: equality with the numpy twin (and a brute oracle) across
 slab boundaries, wrap18/min_dep variants, keep_state dense equality,
 engagement through the HostCoverageEngine on an int64 layout, and
@@ -19,9 +18,9 @@ import pytest
 
 from tests.fixtures import gunzip_bytes
 
-from pandepth_tpu.device import hosteval as he
-from pandepth_tpu.device.host_engine import HostCoverageEngine
-from pandepth_tpu.device.layout import GenomeLayout
+from pandepth_jax.device import hosteval as he
+from pandepth_jax.device.host_engine import HostCoverageEngine
+from pandepth_jax.device.layout import GenomeLayout
 
 
 def _twin(chunks, xp, xd, sentinel, lo, hi, min_dep, wrap18,
@@ -143,8 +142,8 @@ def test_device_and_sharded_engines_int64_match_host():
     """The jax engines on a > 4 Gb layout (int64 positions, the wheat
     tier) must agree with the host engine — the device path is what a
     locally attached backend would elect there."""
-    from pandepth_tpu.device.engine import CoverageEngine
-    from pandepth_tpu.sharding.engine import ShardedCoverageEngine
+    from pandepth_jax.device.engine import CoverageEngine
+    from pandepth_jax.sharding.engine import ShardedCoverageEngine
 
     rng = np.random.RandomState(11)
     lengths = np.full(4, 1_700_000_000, np.int64)
@@ -174,9 +173,9 @@ def test_device_and_sharded_engines_int64_match_host():
 def test_cli_int64_genome_vs_reference(tmp_path, oracle_bin):
     """Full-CLI byte parity on a 6.6 Gb genome (int64 tier) vs the
     reference binary — the slabbed native path end-to-end."""
-    from pandepth_tpu.cli import parse_args
-    from pandepth_tpu.io.bam_writer import write_uniform_bam
-    from pandepth_tpu.run import run
+    from pandepth_jax.cli import parse_args
+    from pandepth_jax.io.bam_writer import write_uniform_bam
+    from pandepth_jax.run import run
 
     tmp = str(tmp_path)
     names = ["w1", "w2", "w3", "w4"]

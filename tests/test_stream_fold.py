@@ -2,7 +2,7 @@
 
 ``HostCoverageEngine.begin_streaming_fold`` folds staged events below
 the coordinate frontier into running prefix integrals at the
-registered query boundaries (VERDICT r4: flat-memory deep coverage).
+registered query boundaries (flat-memory deep coverage).
 These tests force tiny fold thresholds so a few hundred reads cross
 many fold windows, and prove:
 
@@ -19,8 +19,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from pandepth_tpu.device.host_engine import HostCoverageEngine
-from pandepth_tpu.device.layout import GenomeLayout
+from pandepth_jax.device.host_engine import HostCoverageEngine
+from pandepth_jax.device.layout import GenomeLayout
 
 
 def _random_sorted_feed(rng, layout, n_reads, max_len=120):
@@ -119,7 +119,7 @@ def test_fold_cli_parity_vs_reference(tmp_path, targets, oracle_bin,
     from tests.fixtures import gunzip_bytes, make_bam, make_bed, \
         make_gff
 
-    from pandepth_tpu.cli import main as cli_main
+    from pandepth_jax.cli import main as cli_main
 
     bam = str(tmp_path / "t.bam")
     make_bam(bam, n=900, seed=31)

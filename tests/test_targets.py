@@ -6,11 +6,11 @@ import os
 import numpy as np
 import pytest
 
-from pandepth_tpu.config import (MODE_BED3, MODE_BED4, MODE_CHR, MODE_GFF,
+from pandepth_jax.config import (MODE_BED3, MODE_BED4, MODE_CHR, MODE_GFF,
                                  MODE_GTF, MODE_WIN_BIG, MODE_WIN_SMALL)
-from pandepth_tpu.targets.parse import (detect_bed_mode, detect_gff_mode,
+from pandepth_jax.targets.parse import (detect_bed_mode, detect_gff_mode,
                                         parse_targets)
-from pandepth_tpu.targets.windows import (small_window_tiling,
+from pandepth_jax.targets.windows import (small_window_tiling,
                                           synthesize_default_targets)
 
 CHR2TID = {"chr1": 0, "chr2": 1}
@@ -122,8 +122,8 @@ def test_merged_spans_fuzz_vs_scalar_oracle():
     """Vectorized merged_spans/fetch_windows vs a straightforward
     per-tid scalar merge on random (incl. negative-start) spans."""
     import numpy as np
-    from pandepth_tpu.targets.model import TargetSet
-    from pandepth_tpu.config import MODE_BED3
+    from pandepth_jax.targets.model import TargetSet
+    from pandepth_jax.config import MODE_BED3
 
     rng = np.random.RandomState(3)
     for trial in range(60):
@@ -182,7 +182,7 @@ def test_packed_gc_matches_bytes():
     byte splits, empty ranges, out-of-range clipping, lowercase, N)."""
     import numpy as np
 
-    from pandepth_tpu.io.fasta import PackedGC, gc_count_ranges
+    from pandepth_jax.io.fasta import PackedGC, gc_count_ranges
 
     rng = np.random.RandomState(11)
     seq = bytes(rng.choice(list(b"ACGTacgtNn"), 10_037).astype(np.uint8))
@@ -215,10 +215,10 @@ def test_native_fasta_gc_matches_python(tmp_path):
     import numpy as np
     import pytest
 
-    native = pytest.importorskip("pandepth_tpu.io.native")
+    native = pytest.importorskip("pandepth_jax.io.native")
     if native.load_library() is None:
         pytest.skip("native unavailable")
-    from pandepth_tpu.io.fasta import PackedGC, iter_fasta, iter_fasta_gc
+    from pandepth_jax.io.fasta import PackedGC, iter_fasta, iter_fasta_gc
 
     rng = np.random.RandomState(4)
     body = b">c1 some description\r\n"

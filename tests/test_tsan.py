@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "..", "pandepth_tpu", "io", "native",
+_SRC = os.path.join(_HERE, "..", "pandepth_jax", "io", "native",
                     "pancov_io.cpp")
 _DRIVER = os.path.join(_HERE, "tsan_driver.cpp")
 _BIN = "/tmp/pandepth_tsan/driver"

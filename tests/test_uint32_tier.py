@@ -18,8 +18,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from pandepth_tpu.device.engine import CoverageEngine, pos_dtype_for
-from pandepth_tpu.device.layout import GenomeLayout
+from pandepth_jax.device.engine import CoverageEngine, pos_dtype_for
+from pandepth_jax.device.layout import GenomeLayout
 from tests.fixtures import gunzip_bytes
 
 
@@ -109,7 +109,7 @@ def test_engine_matches_oracle_across_sign_boundary():
 
 
 def test_sharded_engine_uint32_matches_single():
-    from pandepth_tpu.sharding.engine import ShardedCoverageEngine
+    from pandepth_jax.sharding.engine import ShardedCoverageEngine
 
     lengths = np.array([1_900_000_000, 1_500_000_000], np.int64)
     lay = GenomeLayout(lengths)
@@ -141,7 +141,7 @@ def test_sharded_engine_uint32_matches_single():
 def test_cli_big_genome_vs_reference(tmp_path, oracle_bin, mode_args):
     """Full-CLI byte parity on a 2.3 Gb genome (uint32 tier) through
     the .csi-indexed path, ours vs the reference binary."""
-    from pandepth_tpu.io.bam_writer import write_uniform_bam
+    from pandepth_jax.io.bam_writer import write_uniform_bam
 
     tmp = str(tmp_path)
     names = ["cA", "cB"]
@@ -165,8 +165,8 @@ def test_cli_big_genome_vs_reference(tmp_path, oracle_bin, mode_args):
     subprocess.run([oracle_bin, "-i", bam, "-o", ref_out] + mode_args,
                    check=True, capture_output=True)
     ours_out = os.path.join(tmp, "ours")
-    from pandepth_tpu.run import run
-    from pandepth_tpu.cli import parse_args
+    from pandepth_jax.run import run
+    from pandepth_jax.cli import parse_args
 
     cfg = parse_args(["pandepth", "-i", bam, "-o", ours_out]
                      + mode_args)

@@ -11,17 +11,17 @@ import os
 import numpy as np
 import pytest
 
-from pandepth_tpu.device.engine import (CoverageEngine,
+from pandepth_jax.device.engine import (CoverageEngine,
                                         _load_warm_sigs,
                                         _record_warm_sig)
-from pandepth_tpu.device.layout import GenomeLayout
+from pandepth_jax.device.layout import GenomeLayout
 
 from tests.fixtures import make_bam
 
 
 @pytest.fixture
 def sig_sidecar(tmp_path, monkeypatch):
-    monkeypatch.setenv("PANDEPTH_JAX_CACHE", str(tmp_path / "jc"))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jc"))
     return tmp_path / "jc" / "finalize_signatures.json"
 
 
@@ -29,15 +29,14 @@ def _armed_engine():
     eng = CoverageEngine(GenomeLayout(np.array([1_000_000])))
     # the suite runs on the CPU backend where plan_finalize_warmup
     # correctly disarms; force the accelerator-side planning path
-    eng._is_cpu_backend = False
-    eng._eval_sort_ok = True
+    eng._platform = "gpu"
     eng.plan_finalize_warmup(100_000, want_state=False)
     assert eng._warm_plan == (131072, False)
     return eng
 
 
 def test_sidecar_roundtrip(sig_sidecar):
-    sig = ("tpu", 1, 2, 512, "scan_unrolled", False, 1, False,
+    sig = ("gpu", 1, 2, 512, "scan_unrolled", False, 1, False,
            "uint32", 1 << 19, 1 << 13, 8)
     assert sig not in _load_warm_sigs()
     _record_warm_sig(sig)
@@ -109,7 +108,7 @@ def _enc_window(eng, n, dtype, base):
 def test_predictor_matches_real_finalize(sig_sidecar, monkeypatch):
     """End-to-end predictor accuracy on a real two-tier encoded feed:
     the signature predicted mid-stream must equal the signature the
-    real finalize actually compiles and records (VERDICT r2 item 1).
+    real finalize actually compiles and records.
     Drives the very same add_encoded_window / segment_stats calls
     run._EncPuller issues, with exact progress numbers so a correct
     predictor has no slack."""
@@ -117,7 +116,7 @@ def test_predictor_matches_real_finalize(sig_sidecar, monkeypatch):
     monkeypatch.setenv("PANDEPTH_ENC_EXC", "64")
     monkeypatch.setenv("PANDEPTH_ENC_BLOCK", "8")
     eng = CoverageEngine(GenomeLayout(np.array([1_000_000])))
-    eng._is_cpu_backend = False  # CPU suite: force accelerator planning
+    eng._platform = "gpu"  # CPU suite: force accelerator planning
     n_segments = 10
     eng.plan_finalize_warmup(n_segments, want_state=False)
     cap = eng.enc_cap
@@ -168,7 +167,7 @@ def _drain_progress(s):
 
 
 def test_stream_progress_monotone(tmp_path):
-    from pandepth_tpu.io.native import NativeBamStream, load_library
+    from pandepth_jax.io.native import NativeBamStream, load_library
 
     if load_library() is None:
         pytest.skip("native library unavailable")
@@ -184,9 +183,9 @@ def test_ranged_stream_progress_converges(tmp_path):
     those bytes are budgeted in comp_total and must still be settled
     into comp_consumed or frac undershoots and the warm-up window
     (frac >= 0.25) opens late or never (advisor r2)."""
-    from pandepth_tpu.io.bamindex import (chunks_for_windows,
+    from pandepth_jax.io.bamindex import (chunks_for_windows,
                                           load_index_for)
-    from pandepth_tpu.io.native import NativeBamStream, load_library
+    from pandepth_jax.io.native import NativeBamStream, load_library
 
     if load_library() is None:
         pytest.skip("native library unavailable")
@@ -214,3 +213,40 @@ def test_ranged_stream_progress_converges(tmp_path):
                         window_bytes=1 << 18))
     assert frac >= 0.999, frac
     assert pairs > 0
+
+
+def test_real_dispatch_waits_for_warmup(sig_sidecar, monkeypatch):
+    """A warm-up thread still inside a device call when the process
+    exits aborts its teardown: segment_stats joins every warm-up
+    thread before its own dispatch."""
+    import threading
+
+    eng = _armed_engine()
+    release = threading.Event()
+    done = []
+
+    def slow_warm(self, *a):
+        release.wait(5)
+        done.append(a)
+
+    monkeypatch.setattr(CoverageEngine, "_warm_finalize", slow_warm)
+    eng._n_win8, eng._n_pairs_enc = 2, 2 * eng.enc_cap
+    eng._last_enc_group = "8"
+    _record_warm_sig(eng._finalize_sig(1, 0, 0, 0))
+    eng.maybe_warm_finalize(0.5, 2 * eng.enc_cap)
+    t = eng._warm_thread_obj
+    assert t.is_alive()
+    threading.Timer(0.2, release.set).start()
+    eng.segment_stats(np.zeros(1, np.int64), np.ones(1, np.int64),
+                      np.full(1, 10, np.int64))
+    assert not t.is_alive() and done == [(1, 0, 0, 0)]
+
+
+def test_raw_feed_never_arms_warmup(sig_sidecar, monkeypatch):
+    """The warmed program is the encoded finalize: an engine fed raw
+    positions arms no warm-up."""
+    monkeypatch.setenv("PANDEPTH_ENC", "0")
+    eng = CoverageEngine(GenomeLayout(np.array([1_000_000])))
+    eng._platform = "gpu"
+    eng.plan_finalize_warmup(100_000, want_state=False)
+    assert eng._warm_plan is None
